@@ -2,13 +2,18 @@
 
 Run from the repo root with no arguments:  python3 chip_smoke.py
 
-The main path is the JAX package's: SparseBuilder assembly → CSR → DIA →
-spmv / spmv_dot / spmv_chain → solvers.cg, here on the 2-D 5-point Poisson
-operator at 2048² = 4,194,304 rows (the reference benchmark's cg_f32_4M).
+Two paths of the JAX package run here.  The banded path: SparseBuilder
+assembly → CSR → DIA → spmv / spmv_dot / spmv_chain → solvers.cg, on the
+2-D 5-point Poisson operator at 2048² = 4,194,304 rows (the reference
+benchmark's cg_f32_4M).  The FEM path: SparseBuilder assembly → CSR →
+StripELL → spmv → the preconditioned solvers, on the pwtk-class surrogate
+``matgen.fem_block_band()`` at its full 217,920 rows (the reference
+benchmark's fem config), made SPD by a dominant diagonal.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
-  2 build       the CUDA kernels (nvcc, sm_90a) and the C++ assembly store
+  2 build       the CUDA kernels (one nvcc per source, all at once, sm_90a)
+                and the C++ assembly store
   3 kernels     each DIA kernel against its plain PyTorch version, f32 and
                 f64: odd n, offsets straddling 128, a one-row band, ±4096
                 halos, a rectangular matrix; the chain at k = 1, 2, 5, 1024
@@ -19,38 +24,69 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   5 converge    CG on the 512² system to rtol 1e-5
   6 determinism spmv, spmv_dot and the 200-iteration CG rerun bitwise
   7 times       kernel vs plain with CUDA events, and CG iterations/s
+  8 dia dtypes  the DIA kernels on bf16, f16 and f32-matrix × f64-x operands
+                against their plain versions
+  9 strip       the StripELL kernel against its plain version, f32, f64 and
+                bf16 values: the JAX package's test shapes, rectangular
+                5000×900 and 300×9000, a stored zero, an empty matrix,
+                lidx_pack 1/2/4, group 1/16
+ 10 fem path    assemble the FEM operator, freeze to StripELL, spmv (strip
+                kernel vs the CSR stream path, and vs its plain version at
+                full size), PCG(Jacobi), PCG(block-Jacobi 64), BiCGStab,
+                GMRES(30), Chebyshev, Jacobi, BiCGStab and GMRES on a
+                nonsymmetric variant, f64 refinement over f32 PCG; the strip
+                launch counter must be > 0; true residuals in f64 on the host
+ 11 determinism strip spmv and the PCG(Jacobi) run rerun bitwise
+ 12 times       strip kernel vs plain with CUDA events (per call, wrapper
+                included) and the kernel's device time (profiler), GB/s, and
+                PCG(Jacobi) iterations/s through the kernel and the plain
+                version
 Then a JSON line of the kernels and, last, the device JSON line.
 
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
-64 CG iterations through the kernels at 512² and 2048² and prints the device
-time per iteration by kernel and the device's busy share of wall time.
+64 CG iterations through the kernels at 512² and 2048² and of 64 PCG(Jacobi)
+iterations on the FEM StripELL, and prints the device time per iteration by
+kernel and the device's busy share of wall time.
 
-Tolerances (relative to max|reference|): f32 y 1e-5 (the same diagonal-order
-sum, rounded with and without fused multiply-add), f32 dot 1e-4 (another
-summation order), f64 1e-12.
+Tolerances (relative to max|reference|): f32 y 1e-5 (the same sums,
+rounded with and without fused multiply-add, and for the strip kernel in
+another order), f32 dot 1e-4 (another summation order), f64 1e-12.  bf16
+and f16 operands are widened to f32 by both versions and held to the f32
+tolerance.
 """
 
 import argparse
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 import sparsemat_tpu_torch as tsm
-from sparsemat_tpu_torch import solvers
+from sparsemat_tpu_torch import matgen, solvers
 from sparsemat_tpu_torch.kernels import dia as kd
+from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.native import get_lib
 
-SOURCE = "sparsemat_tpu_torch/csrc/dia.cu"
-REPLACES = {"dia_spmv": "sparsemat_tpu/kernels/dia.py:76",
-            "dia_spmv_dot": "sparsemat_tpu/kernels/dia.py:305",
-            "dia_spmv_chain": "sparsemat_tpu/kernels/dia.py:202"}
-TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12}}
+#: kernel → (its source, the TPU kernel it replaces)
+_DIA_CU = "sparsemat_tpu_torch/csrc/dia.cu"
+KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
+           "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
+           "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
+           "strip_spmv": ("sparsemat_tpu_torch/csrc/strip.cu",
+                          "sparsemat_tpu/kernels/strip.py:42")}
+TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
+       torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
+#: FEM solves: relative tolerance, and the bound on the true relative
+#: residual (f64, host) each converged solve must meet
+FEM_RTOL = 1e-5
+FEM_TRUE_REL = 1e-4
 
-MAX_ABS = {name: 0.0 for name in REPLACES}
+MAX_ABS = {name: 0.0 for name in KERNELS}
 
 
 def say(phase, msg):
@@ -157,48 +193,320 @@ def paired_ms(kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, [k1, k2], [p1, p2]
 
 
-def cg_iters_per_s(A, b, iters):
-    solvers.cg(A, b, tol=0.0, maxiter=32)
+def cg_iters_per_s(A, b, iters, M=None):
+    solvers.cg(A, b, tol=0.0, maxiter=32, M=M)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, info = solvers.cg(A, b, tol=0.0, maxiter=iters)
+    _, info = solvers.cg(A, b, tol=0.0, maxiter=iters, M=M)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(int(info.iterations) == iters, "CG stopped early")
     return iters / dt
 
 
-def profile_cg(dev, iters=64):
-    """Device time per CG iteration by kernel, and the device's busy share
-    of the wall time with and without the profiler."""
+def build_all():
+    """Build every native library at once (one compiler process each) and
+    return the seconds each took; a failed build raises."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
+            "C++ assembly store": get_lib}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
+        results = {name: f.result() for name, f in futs.items()}
+    check(results["C++ assembly store"][0] is not None,
+          "the C++ assembly library did not build")
+    return {name: dt for name, (_, dt) in results.items()}
+
+
+def banded_random(n, half_bw, density, seed, n_cols=None):
+    """The JAX package's StripELL test matrices (tests/test_strip.py):
+    random entries kept within ``half_bw`` of the diagonal."""
+    rng = np.random.default_rng(seed)
+    n_cols = n if n_cols is None else n_cols
+    m = sp.random(n, n_cols, density, format="coo", dtype=np.float32, random_state=rng)
+    keep = np.abs(m.row - m.col) <= half_bw
+    return sp.coo_matrix((m.data[keep], (m.row[keep], m.col[keep])),
+                         shape=(n, n_cols)).tocsr()
+
+
+def strip_cases():
+    """(label, scipy matrix, to_strip kwargs) for the kernel-vs-plain phase."""
+    zero = banded_random(800, 300, 0.02, 5)
+    zero.data[[0, 17]] = 0.0                # stored entries whose value is zero
+    rng = np.random.default_rng(4)
+    cases = [(f"test_strip n={n} bw={bw}", banded_random(n, bw, d, seed), {})
+             for n, bw, d, seed in ((3000, 1500, 0.004, 0), (1000, 400, 0.02, 1),
+                                    (517, 517, 0.05, 2), (130, 40, 0.3, 3))]
+    cases += [(f"rectangular {r}x{c}", sp.random(r, c, density=d, format="csr",
+                                                 dtype=np.float32, random_state=rng), {})
+              for (r, c), d in (((5000, 900), 0.01), ((300, 9000), 0.02))]
+    cases += [("stored zero", zero, {}),
+              ("empty", sp.csr_matrix((700, 500), dtype=np.float32), {})]
+    wide = banded_random(6000, 1200, 0.01, 6)
+    cases += [(f"lidx_pack={p} group={g}", wide, dict(lidx_pack=p, group=g))
+              for p in (1, 2, 4) for g in (1, 16)]
+    return cases
+
+
+def fem_triplets(skew=0.0):
+    """The pwtk-class surrogate ``matgen.fem_block_band()`` (217,920 rows,
+    seed 0) with its diagonal set to Σ_j≠i |a_ij| + 1: symmetric and
+    strictly diagonally dominant, hence SPD, with Gershgorin bounds
+    [1, max_i(2 d_i − 1)].  ``skew`` adds a skew-symmetric band
+    (+skew at (i, i+1), −skew at (i+1, i)), which keeps the symmetric part
+    and makes the operator nonsymmetric.  Returns (rows, cols, vals, n,
+    lambda_max)."""
+    m = matgen.fem_block_band(seed=SEED).tocoo()
+    n = m.shape[0]
+    off = m.row != m.col
+    r, c, v = m.row[off].astype(np.int64), m.col[off].astype(np.int64), m.data[off]
+    d = np.bincount(r, weights=np.abs(v).astype(np.float64), minlength=n) + 1.0
+    i = np.arange(n, dtype=np.int64)
+    rows, cols, vals = [r, i], [c, i], [v, d.astype(np.float32)]
+    if skew:
+        j = i[:-1]
+        rows += [j, j + 1]
+        cols += [j + 1, j]
+        vals += [np.full(n - 1, skew, np.float32), np.full(n - 1, -skew, np.float32)]
+    return (np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n,
+            float(2.0 * d.max() - 1.0))
+
+
+def assemble_strip(rows, cols, vals, n, device):
+    """SparseBuilder.add_batch → to_csr(device) → to_strip(), timed."""
+    t0 = time.perf_counter()
+    b = tsm.SparseBuilder(rows.size)
+    b.add_batch(rows, cols, vals)
+    t1 = time.perf_counter()
+    csr = b.to_csr(device=device)
+    t2 = time.perf_counter()
+    st = csr.to_strip()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check(b.native, "the builder is not using the C++ store")
+    check(csr.shape == (n, n), f"shape {csr.shape}")
+    return csr, st, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def true_rel(csr, x, b):
+    r, bn = host_residual(csr, x, b)
+    return r / bn
+
+
+def device_us(fn, iters, key):
+    """Device µs per call of the kernels whose name holds ``key``, from a
+    torch.profiler trace of ``iters`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
+    check(us > 0, f"the profiler recorded no device time for {key}")
+    return us / iters
+
+
+def profile_cg(dev, iters=64):
+    """Device time per CG iteration by kernel, and the device's busy share
+    of the wall time with and without the profiler: CG on the 512² and
+    2048² Poisson DIA, and PCG(Jacobi) on the FEM StripELL."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = []
     for n in (512, 2048):
         csr, dia, _ = assemble_poisson(n, dev)
         b = tsm.spmv(csr, torch.randn(n * n, generator=gen(dev), device=dev))
+        cases.append((f"CG {n}²", dia, b, None))
+    rows, cols, vals, n, _ = fem_triplets()
+    csr, st, _ = assemble_strip(rows, cols, vals, n, dev)
+    cases.append(("PCG(Jacobi) fem StripELL", st,
+                  torch.randn(n, generator=gen(dev), device=dev),
+                  solvers.JacobiPreconditioner.from_matrix(csr)))
+    for label, A, b, M in cases:
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solvers.cg(dia, b, tol=0.0, maxiter=iters)
+            solvers.cg(A, b, tol=0.0, maxiter=iters, M=M)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e6 / iters)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solvers.cg(dia, b, tol=0.0, maxiter=iters)
+            solvers.cg(A, b, tol=0.0, maxiter=iters, M=M)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6 / iters
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in kern) / iters
         check(dev_us > 0, "the profiler recorded no device time")
-        say("profile", f"CG {n}²: wall us/iter unprofiled {walls}, profiled {wall}; "
+        say("profile", f"{label}: wall us/iter unprofiled {walls}, profiled {wall}; "
             f"device us/iter {dev_us}; busy share of unprofiled wall "
             f"{dev_us / min(walls)}, of profiled wall {dev_us / wall}")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:14]:
             print(f"   {e.self_device_time_total / iters:9.2f} us/iter  "
                   f"x{e.count / iters:5.2f}/iter  {e.key[:110]}", flush=True)
+
+
+def fem_phases(dev, g, times, launches):
+    """Phases 8–12: the DIA dtype repair, the strip kernel against its
+    plain version, and the FEM path.  Adds the strip kernel's times and
+    main-path launches to ``times`` and ``launches``."""
+    # 8 ------------------------------------------------------------------------
+    worst = {}
+    A = averaging_dia(100_001, 100_001, (-300, -1, 0, 1, 300), torch.float32, g)
+    x32 = torch.randn(100_001, generator=g, device=dev)
+    for label, dt_mat, dt_x in (("bf16", torch.bfloat16, torch.bfloat16),
+                                ("f16", torch.float16, torch.float16),
+                                ("f32 matrix, f64 x", torch.float32, torch.float64)):
+        Ad = tsm.DIA(data=A.data.to(dt_mat), offsets=A.offsets, shape=A.shape)
+        xd = x32.to(dt_x)
+        tol = TOL[torch.promote_types(dt_mat, dt_x)]
+        y = kd.dia_spmv(Ad, xd)
+        y_ref = kd.dia_spmv_ref(Ad, xd)
+        check(y.dtype == y_ref.dtype, f"{label}: kernel dtype {y.dtype} vs {y_ref.dtype}")
+        errs = [compare("dia_spmv", y, y_ref, tol["y"], f"dia_spmv {label}")]
+        (yd, d), (yd_ref, d_ref) = kd.dia_spmv_dot(Ad, xd), kd.dia_spmv_dot_ref(Ad, xd)
+        errs.append(compare("dia_spmv_dot", yd, yd_ref, tol["y"], f"dia_spmv_dot y {label}"))
+        errs.append(compare("dia_spmv_dot", d, d_ref, tol["dot"], f"dia_spmv_dot dot {label}"))
+        for k in (1, 5):
+            yc = kd.dia_spmv_chain(Ad, xd, k)
+            yc_ref = kd.dia_spmv_chain_ref(Ad, xd, k)
+            check(yc.dtype == yc_ref.dtype, f"{label}: chain dtype {yc.dtype}")
+            errs.append(compare("dia_spmv_chain", yc, yc_ref, tol["y"],
+                                f"dia_spmv_chain k={k} {label}"))
+        worst[f"{label} → {y.dtype}"] = max(errs)
+    torch.cuda.synchronize()
+    say("8 dia dtypes", "kernels vs plain within tolerance; worst rel err: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 9 ------------------------------------------------------------------------
+    worst = {}
+    for label, m, kw in strip_cases():
+        st = tsm.CSR.from_scipy(m, device=dev).to_strip(**kw)
+        check(st.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        xs = torch.randn(m.shape[1], generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            s_dt = st.astype(dt)
+            x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
+            y = ks.strip_spmv(s_dt, x_dt)
+            y_ref = ks.strip_spmv_ref(s_dt, x_dt)
+            check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
+            errs.append(compare("strip_spmv", y, y_ref, TOL[dt]["y"], f"strip {label} {dt}"))
+        worst[label] = max(errs)
+    torch.cuda.synchronize()
+    say("9 strip", "kernel vs plain within tolerance (f32, f64, bf16 values); worst "
+        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 10 -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    rows, cols, vals, n, lam_max = fem_triplets()
+    t_gen = time.perf_counter() - t0
+    ks.reset_launches()
+    csr, st, (t_add, t_csr, t_strip) = assemble_strip(rows, cols, vals, n, dev)
+    del rows, cols, vals
+    x = torch.randn(n, generator=g, device=dev)
+    y_st = tsm.spmv(st, x)
+    e_spmv = compare(None, y_st, tsm.spmv(csr, x), 1e-5, "fem spmv strip kernel vs CSR stream")
+    b = torch.randn(n, generator=g, device=dev)
+    Mj = solvers.JacobiPreconditioner.from_matrix(csr)
+    report = {}
+
+    def solved(label, x_, info, A_csr, b_):
+        rel = true_rel(A_csr, x_, b_)
+        check(bool(info.converged), f"{label} did not converge in {int(info.iterations)}")
+        check(rel <= FEM_TRUE_REL, f"{label}: true relative residual {rel:.3e} > {FEM_TRUE_REL}")
+        report[label] = (int(info.iterations), rel)
+
+    x_pcg, info_pcg = solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mj)
+    solved("PCG(Jacobi)", x_pcg, info_pcg, csr, b)
+    Mb = solvers.BlockJacobiPreconditioner.from_matrix(csr, block_size=64)
+    solved("PCG(block-Jacobi 64)",
+           *solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mb), csr, b)
+    solved("BiCGStab", *solvers.bicgstab(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000), csr, b)
+    solved("GMRES(30)", *solvers.gmres(st, b, tol=0.0, rtol=FEM_RTOL, restart=30,
+                                       maxiter=3000), csr, b)
+    solved("Chebyshev", *solvers.chebyshev(st, b, lambda_min=1.0, lambda_max=lam_max, tol=0.0,
+                                           rtol=FEM_RTOL, maxiter=5000), csr, b)
+    solved("Jacobi", *solvers.jacobi(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=5000), csr, b)
+
+    # f32 PCG run far past where it stalls, then refinement: f64 residuals
+    # through the f64 strip kernel steer f32 inner PCG solves
+    x32s, _ = solvers.cg(st, b, tol=0.0, rtol=1e-12, maxiter=600, M=Mj)
+    stall = true_rel(csr, x32s, b)
+    b64 = b.double()
+    x_ref, info_ref = solvers.refine(st.astype(torch.float64), b64, tol=0.0, rtol=1e-12,
+                                     A_low=st, M=Mj, inner_rtol=1e-2)
+    refined = true_rel(csr, x_ref, b64)
+    check(refined < stall, f"refine's true residual {refined:.3e} is not below f32 PCG's "
+                           f"{stall:.3e}")
+
+    nrows, ncols, nvals, _, _ = fem_triplets(skew=1.0)
+    csr_ns, st_ns, _ = assemble_strip(nrows, ncols, nvals, n, dev)
+    del nrows, ncols, nvals
+    sym = tsm.spmv(st_ns, x) - tsm.spmv(st, x)
+    check(float(sym.abs().max()) > 0.1, "the skew band made no difference")
+    solved("BiCGStab nonsymmetric",
+           *solvers.bicgstab(st_ns, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000), csr_ns, b)
+    solved("GMRES(30) nonsymmetric",
+           *solvers.gmres(st_ns, b, tol=0.0, rtol=FEM_RTOL, restart=30, maxiter=3000),
+           csr_ns, b)
+    torch.cuda.synchronize()
+    launches["strip_spmv"] = ks.LAUNCHES["strip_spmv"]
+    check(launches["strip_spmv"] > 0, "the FEM path launched strip_spmv no time")
+
+    # the kernel against its plain version at full size, f32 and f64
+    e_full = compare("strip_spmv", y_st, ks.strip_spmv_ref(st, x), 1e-5, "fem strip f32")
+    st64, x64 = st.astype(torch.float64), x.double()
+    e_full64 = compare("strip_spmv", ks.strip_spmv(st64, x64), ks.strip_spmv_ref(st64, x64),
+                       1e-12, "fem strip f64")
+    del st64
+    parts = [p.c_total for p in st.parts]
+    say("10 fem path", f"fem_block_band: {n} rows, {csr.n_non_zero_entries()} entries; "
+        f"generate {t_gen:.3f} s, add_batch {t_add:.3f} s, to_csr {t_csr:.3f} s, "
+        f"to_strip {t_strip:.3f} s; {len(st.parts)} parts, c_total {min(parts)}–{max(parts)}, "
+        f"nse {st.nse}, fill {st.fill_ratio():.3f}, kernel bytes {ks.strip_kernel_bytes(st)}; "
+        f"spmv vs CSR rel err {e_spmv:.2e}; kernel vs plain f32 {e_full:.2e} f64 "
+        f"{e_full64:.2e}; Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {FEM_RTOL} "
+        "(iterations, true relative residual f64): "
+        + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
+        + f"; f32 PCG at rtol 1e-12 stalls at {stall:.3e}, refine (f64 over f32 PCG) "
+        f"reaches {refined:.3e} in {len(info_ref.residual_history)} outer / "
+        f"{int(info_ref.iterations)} inner steps; strip launches {launches['strip_spmv']}")
+
+    # 11 -----------------------------------------------------------------------
+    check(torch.equal(tsm.spmv(st, x), y_st), "strip spmv rerun differs")
+    x_pcg2, info_pcg2 = solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mj)
+    check(torch.equal(x_pcg2, x_pcg) and torch.equal(info_pcg2.residual_norm,
+                                                      info_pcg.residual_norm),
+          "PCG(Jacobi) rerun differs")
+    say("11 determinism", "strip spmv and PCG(Jacobi) rerun bitwise equal")
+
+    # 12 -----------------------------------------------------------------------
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ks.strip_spmv(st, x),
+                                           lambda: ks.strip_spmv_ref(st, x), 20)
+    times["strip_spmv"] = (k_ms, p_ms)
+    kb = ks.strip_kernel_bytes(st) / 1e6
+    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "strip_spmv_kernel") / 1e3
+    say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call ({kb / k_ms:.1f} "
+        f"GB/s of {kb:.1f} MB kernel bytes; {csr.n_non_zero_entries() / k_ms / 1e6:.3f} "
+        f"Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device ({kb / d_ms:.1f} GB/s, "
+        f"profiler); plain {p_ms:.4f} ms ({kb / p_ms:.1f} GB/s) runs {p_runs}")
+    plain = lambda v: ks.strip_spmv_ref(st, v)  # noqa: E731
+    runs = [cg_iters_per_s(plain, b, 64, Mj), cg_iters_per_s(st, b, 256, Mj),
+            cg_iters_per_s(st, b, 256, Mj), cg_iters_per_s(plain, b, 64, Mj)]
+    say("12 times", f"PCG(Jacobi) f32 fem: kernel {(runs[1] + runs[2]) / 2:.1f} iters/s "
+        f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
+        f"runs {[runs[0], runs[3]]}")
 
 
 def main():
@@ -223,12 +531,7 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     # 2 ------------------------------------------------------------------------
-    t0 = time.perf_counter()
-    kd._kernels()
-    t1 = time.perf_counter()
-    check(get_lib() is not None, "the C++ assembly library did not build")
-    t2 = time.perf_counter()
-    say("2 build", f"CUDA kernels {t1 - t0:.3f} s; C++ assembly store {t2 - t1:.3f} s")
+    say("2 build", "; ".join(f"{k} {v:.3f} s" for k, v in build_all().items()))
 
     # 3 ------------------------------------------------------------------------
     g = gen(dev)
@@ -362,11 +665,13 @@ def main():
             f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
             f"runs {[runs[0], runs[3]]}")
 
+    fem_phases(dev, g, times, launches)
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": MAX_ABS[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in REPLACES]}), flush=True)
+        for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -34,6 +34,14 @@
 // sums the partials with torch.sum.  No atomics: reruns are bitwise equal,
 // as the reference requires.
 //
+// Storage and accumulation types: the SpMV kernels are templated on the
+// storage type S of data and x and the accumulation type A of y and the dot
+// partials.  f32 and f64 accumulate in themselves; bf16 and f16 storage is
+// widened to f32 on load and accumulated in f32, so y is f32, as the JAX
+// package's dia_spmv computes it (accum_dtype).  Mixed operands are promoted
+// by the Python wrapper before the launch; the chain runs in the
+// accumulation type (f32/f64) throughout.
+//
 // The chain: a cooperative launch (cudaLaunchCooperativeKernel) sized to the
 // blocks that can be co-resident, a grid-stride row loop that writes
 // ping-pong buffers in global memory, and cooperative_groups grid.sync()
@@ -50,6 +58,8 @@
 // reports none, the Python wrapper raises rather than running another path.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -58,47 +68,65 @@ namespace cg = cooperative_groups;
 
 constexpr int THREADS = 256;
 
-template <typename T, bool COHERENT>
-__device__ __forceinline__ T load_x(const T* p) {
+// Read-only load of one stored value, widened to the accumulation type.
+template <typename A>
+__device__ __forceinline__ A ld(const float* p) { return static_cast<A>(__ldg(p)); }
+template <typename A>
+__device__ __forceinline__ A ld(const double* p) { return static_cast<A>(__ldg(p)); }
+template <typename A>
+__device__ __forceinline__ A ld(const __nv_bfloat16* p) {
+  return static_cast<A>(__bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)))));
+}
+template <typename A>
+__device__ __forceinline__ A ld(const __half* p) {
+  return static_cast<A>(__half2float(
+      __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)))));
+}
+
+// x load: the chain reads buffers that other blocks write in the same launch,
+// so it bypasses L1 (ld.global.cg); the chain runs in f32/f64 only.
+template <typename S, typename A, bool COHERENT>
+__device__ __forceinline__ A load_x(const S* p) {
   if constexpr (COHERENT) {
     return __ldcg(p);
   } else {
-    return __ldg(p);
+    return ld<A>(p);
   }
 }
 
-template <typename T, bool COHERENT>
-__device__ __forceinline__ T dia_row(const T* __restrict__ data,
+template <typename S, typename A, bool COHERENT>
+__device__ __forceinline__ A dia_row(const S* __restrict__ data,
                                      const int64_t* __restrict__ offs, int n_d,
                                      int64_t n_rows, int64_t n_cols,
-                                     const T* x, int64_t i) {
-  T acc = T(0);
+                                     const S* x, int64_t i) {
+  A acc = A(0);
   for (int d = 0; d < n_d; ++d) {
     const int64_t j = i + __ldg(offs + d);
     if (j >= 0 && j < n_cols) {
-      acc += __ldg(data + static_cast<int64_t>(d) * n_rows + i) *
-             load_x<T, COHERENT>(x + j);
+      acc += ld<A>(data + static_cast<int64_t>(d) * n_rows + i) *
+             load_x<S, A, COHERENT>(x + j);
     }
   }
   return acc;
 }
 
-template <typename T, bool WITH_DOT>
+template <typename S, typename A, bool WITH_DOT>
 __global__ void __launch_bounds__(THREADS)
-dia_spmv_kernel(const T* __restrict__ data, const int64_t* __restrict__ offs,
+dia_spmv_kernel(const S* __restrict__ data, const int64_t* __restrict__ offs,
                 int n_d, int64_t n_rows, int64_t n_cols,
-                const T* __restrict__ x, T* __restrict__ y,
-                T* __restrict__ partials) {
+                const S* __restrict__ x, A* __restrict__ y,
+                A* __restrict__ partials) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-  T dot = T(0);
+  A dot = A(0);
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
        i < n_rows; i += stride) {
-    const T acc = dia_row<T, false>(data, offs, n_d, n_rows, n_cols, x, i);
+    const A acc = dia_row<S, A, false>(data, offs, n_d, n_rows, n_cols, x, i);
     y[i] = acc;
-    if constexpr (WITH_DOT) dot += acc * __ldg(x + i);
+    if constexpr (WITH_DOT) dot += acc * ld<A>(x + i);
   }
   if constexpr (WITH_DOT) {
-    __shared__ T s[THREADS];
+    __shared__ A s[THREADS];
     s[threadIdx.x] = dot;
     __syncthreads();
     for (int h = THREADS / 2; h > 0; h >>= 1) {
@@ -121,29 +149,29 @@ dia_chain_kernel(const T* __restrict__ data, const int64_t* __restrict__ offs,
     T* dst = ((k - 1 - s) & 1) ? tmp : out;
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
          i < n; i += stride) {
-      dst[i] = dia_row<T, true>(data, offs, n_d, n, n, src, i);
+      dst[i] = dia_row<T, T, true>(data, offs, n_d, n, n, src, i);
     }
     grid.sync();
     src = dst;
   }
 }
 
-template <typename T>
+template <typename S, typename A>
 static int launch_spmv(const void* data, const void* offs, int n_d,
                        int64_t n_rows, int64_t n_cols, const void* x, void* y,
                        void* partials, int blocks, void* stream) {
-  const T* d = static_cast<const T*>(data);
+  const S* d = static_cast<const S*>(data);
   const int64_t* o = static_cast<const int64_t*>(offs);
-  const T* xx = static_cast<const T*>(x);
-  T* yy = static_cast<T*>(y);
-  T* pp = static_cast<T*>(partials);
+  const S* xx = static_cast<const S*>(x);
+  A* yy = static_cast<A*>(y);
+  A* pp = static_cast<A*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pp != nullptr) {
-    dia_spmv_kernel<T, true><<<blocks, THREADS, 0, st>>>(d, o, n_d, n_rows,
-                                                         n_cols, xx, yy, pp);
+    dia_spmv_kernel<S, A, true><<<blocks, THREADS, 0, st>>>(d, o, n_d, n_rows,
+                                                            n_cols, xx, yy, pp);
   } else {
-    dia_spmv_kernel<T, false><<<blocks, THREADS, 0, st>>>(d, o, n_d, n_rows,
-                                                          n_cols, xx, yy, pp);
+    dia_spmv_kernel<S, A, false><<<blocks, THREADS, 0, st>>>(d, o, n_d, n_rows,
+                                                             n_cols, xx, yy, pp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -189,19 +217,21 @@ const char* smt_cuda_error_string(int e) {
 }
 
 // partials == NULL: plain SpMV; otherwise one x.(Ax) partial per block.
-int smt_dia_spmv_f32(const void* data, const void* offs, int n_d,
-                     int64_t n_rows, int64_t n_cols, const void* x, void* y,
-                     void* partials, int blocks, void* stream) {
-  return launch_spmv<float>(data, offs, n_d, n_rows, n_cols, x, y, partials,
-                            blocks, stream);
-}
+// data and x are of the suffix's storage type; y and the partials of its
+// accumulation type (f32 for bf16 and f16).
+#define SMT_DIA_SPMV(SUFFIX, S, A)                                            \
+  int smt_dia_spmv_##SUFFIX(const void* data, const void* offs, int n_d,     \
+                            int64_t n_rows, int64_t n_cols, const void* x,   \
+                            void* y, void* partials, int blocks,             \
+                            void* stream) {                                  \
+    return launch_spmv<S, A>(data, offs, n_d, n_rows, n_cols, x, y,          \
+                             partials, blocks, stream);                      \
+  }
 
-int smt_dia_spmv_f64(const void* data, const void* offs, int n_d,
-                     int64_t n_rows, int64_t n_cols, const void* x, void* y,
-                     void* partials, int blocks, void* stream) {
-  return launch_spmv<double>(data, offs, n_d, n_rows, n_cols, x, y, partials,
-                             blocks, stream);
-}
+SMT_DIA_SPMV(f32, float, float)
+SMT_DIA_SPMV(f64, double, double)
+SMT_DIA_SPMV(bf16, __nv_bfloat16, float)
+SMT_DIA_SPMV(f16, __half, float)
 
 // Blocks of the chain kernel that can be co-resident on the current device
 // (0 when the device has no cooperative launch).

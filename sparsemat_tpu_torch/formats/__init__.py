@@ -1,10 +1,12 @@
 """Frozen sparse formats: ``COO`` (assembly snapshot), ``CSR`` (canonical
-compute) and ``DIA`` (banded/stencil).  The other formats of the JAX
-package, and ``auto_format``, are not ported yet."""
+compute), ``DIA`` (banded/stencil) and ``StripELL`` (bounded-span
+scattered, the FEM class).  The other formats of the JAX package, and
+``auto_format``, are not ported yet."""
 
 from .base import SparseFormat
 from .coo import COO
 from .csr import CSR
 from .dia import DIA
+from .strip import StripELL, StripPart
 
-__all__ = ["SparseFormat", "COO", "CSR", "DIA"]
+__all__ = ["SparseFormat", "COO", "CSR", "DIA", "StripELL", "StripPart"]

@@ -14,6 +14,7 @@ and ``val == 0``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -69,6 +70,13 @@ class SparseFormat:
 
         return DIA.from_csr(self.to_csr())
 
+    def to_strip(self, n_classes: int = 32, group: int = 16,
+                 lidx_pack: int = 4):
+        from .strip import StripELL
+
+        return StripELL.from_csr(self.to_csr(), n_classes=n_classes,
+                                 group=group, lidx_pack=lidx_pack)
+
     @property
     def n_rows(self) -> int:
         return self.shape[0]
@@ -113,6 +121,18 @@ class SparseFormat:
 
     def scale(self, scalar):
         raise NotImplementedError
+
+    def astype(self, dtype) -> "SparseFormat":
+        """Same structure, values cast to ``dtype``: floating tensor fields
+        only; index and mask fields keep their types (the mixed-precision
+        solvers' low-precision operator)."""
+        dtype = as_torch_dtype(dtype)
+        updates = {}
+        for f in dataclasses.fields(self):  # type: ignore[arg-type]
+            t = getattr(self, f.name)
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                updates[f.name] = t.to(dtype)
+        return dataclasses.replace(self, **updates)  # type: ignore[type-var]
 
     # -- structure queries ------------------------------------------------------
     @property

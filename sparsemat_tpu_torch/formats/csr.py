@@ -162,5 +162,21 @@ class CSR(SparseFormat):
     def n_non_zero_entries(self) -> int:
         return int(self.host("indptr")[-1])
 
+    def row_nnz(self) -> torch.Tensor:
+        """Per-row entry counts."""
+        return self.indptr[1:] - self.indptr[:-1]
+
+    def max_row_nnz(self) -> int:
+        """Host-side max entries per row."""
+        return int(np.diff(self.host("indptr").astype(np.int64)).max(initial=0))
+
     def scale(self, scalar) -> "CSR":
         return dataclasses.replace(self, data=self.data * scalar)
+
+    def diagonal(self) -> torch.Tensor:
+        """The main diagonal, dense (the basis of Jacobi-type solvers).
+        Duplicate diagonal entries are summed, as in the JAX package."""
+        rid = self.row_ids.long()
+        on_diag = (rid == self.indices.long()) & (rid < self.n_rows)
+        d = torch.zeros(self.n_rows, dtype=self.data.dtype, device=self.data.device)
+        return d.index_add_(0, rid[on_diag], self.data[on_diag])

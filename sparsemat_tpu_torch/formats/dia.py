@@ -56,6 +56,15 @@ class DIA(SparseFormat):
         return cls(data=to_device(data, csr.dtype, csr.device),
                    offsets=tuple(int(o) for o in offs), shape=tuple(csr.shape))
 
+    @staticmethod
+    def diagonal_count(csr) -> int:
+        """Number of distinct nonzero diagonals (host-side dispatch metric)."""
+        rows = csr.host("row_ids")
+        cols = csr.host("indices")
+        valid = rows < csr.shape[0]
+        return int(np.unique(cols[valid].astype(np.int64)
+                             - rows[valid].astype(np.int64)).size)
+
     # -- canonical views ------------------------------------------------------
     def to_coo(self):
         from .coo import COO
@@ -95,6 +104,11 @@ class DIA(SparseFormat):
 
     def scale(self, scalar) -> "DIA":
         return dataclasses.replace(self, data=self.data * scalar)
+
+    def diagonal(self) -> torch.Tensor:
+        if 0 in self.offsets:
+            return self.data[self.offsets.index(0)]
+        return torch.zeros(self.n_rows, dtype=self.data.dtype, device=self.data.device)
 
 
 def _pad_extents(dia: DIA):

@@ -6,6 +6,12 @@ only when its tensors lie on the CPU; on a CUDA tensor it launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches, one per launch, so
 a run can show that its main path went through the kernels.
 
+Dtypes: every combination the JAX package's ``spmv`` takes on a DIA runs
+through a kernel.  Operands of two dtypes are promoted as
+``torch.promote_types`` does; bf16 and f16 are read as they are stored and
+accumulated in f32 (``types.accum_dtype``), so y is f32.  The chain carries
+the accumulation dtype through its steps (f32 or f64).
+
 The TPU kernels' chunk plan (``_plan``, ``VMEM_BUDGET``, ``ALIGN``, lane
 rolls) sized buffers for the TPU's on-chip memory; nothing of it applies
 here.
@@ -19,6 +25,7 @@ import torch
 
 from ..formats.dia import DIA
 from ..formats.dia import dia_spmv as dia_spmv_ref
+from ..types import FLOAT_DTYPES, accum_dtype
 from .._build import load_cuda
 
 #: kernel launches per wrapper (plain versions do not count)
@@ -27,7 +34,11 @@ LAUNCHES = {"dia_spmv": 0, "dia_spmv_dot": 0, "dia_spmv_chain": 0}
 #: grid cap of the SpMV kernels; past it each thread loops over rows
 MAX_BLOCKS = 1 << 16
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: SpMV kernel per storage dtype (y and the dot in accum_dtype of it)
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16", torch.float16: "f16"}
+#: the chain runs in the accumulation dtype
+_CHAIN_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
 _chain_max_blocks: dict = {}
 
@@ -47,6 +58,7 @@ def _kernels() -> ctypes.CDLL:
             fn = getattr(lib, f"smt_dia_spmv_{s}")
             fn.argtypes = [vp, vp, i32, i64, i64, vp, vp, vp, i32, vp]
             fn.restype = i32
+        for s in _CHAIN_SUFFIX.values():
             fn = getattr(lib, f"smt_dia_chain_{s}")
             fn.argtypes = [vp, vp, i32, i64, vp, vp, vp, i32, i32, vp]
             fn.restype = i32
@@ -70,15 +82,17 @@ def _on_cpu(dia: DIA, x: torch.Tensor) -> bool:
     return dia.data.device.type == "cpu" and x.device.type == "cpu"
 
 
-def _check_operands(dia: DIA, x: torch.Tensor, what: str) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+def _operands(dia: DIA, x: torch.Tensor, what: str, dtype=None):
+    """(data, x) for the CUDA kernel: both on one CUDA device, contiguous, of
+    one dtype — ``dtype``, or else ``torch.promote_types`` of the two.
+    Raises on anything the kernels do not take."""
     if x.device.type != "cuda" or dia.data.device != x.device:
         raise ValueError(f"{what}: matrix on {dia.data.device} and vector on "
                          f"{x.device}; the kernel needs both on one CUDA device")
-    if dia.data.dtype not in _SUFFIX or x.dtype != dia.data.dtype:
-        raise TypeError(f"{what}: the CUDA kernel takes float32 or float64 "
-                        f"matrix and vector of one dtype, got "
-                        f"{dia.data.dtype} and {x.dtype}")
+    if dia.data.dtype not in FLOAT_DTYPES or x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernels take float32, float64, "
+                        f"bfloat16 or float16 operands, got {dia.data.dtype} "
+                        f"and {x.dtype}")
     n_rows, n_cols = dia.shape
     if tuple(dia.data.shape) != (len(dia.offsets), n_rows):
         raise ValueError(f"{what}: data has shape {tuple(dia.data.shape)}, "
@@ -88,6 +102,9 @@ def _check_operands(dia: DIA, x: torch.Tensor, what: str) -> None:
                          f"{dia.shape} matrix")
     if not (dia.data.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{what}: the kernel needs contiguous data and x")
+    if dtype is None:
+        dtype = torch.promote_types(dia.data.dtype, x.dtype)
+    return dia.data.to(dtype), x.to(dtype)
 
 
 def _require_square(dia: DIA, what: str) -> None:
@@ -99,20 +116,23 @@ def _spmv_blocks(n_rows: int, threads: int) -> int:
     return max(1, min(-(-n_rows // threads), MAX_BLOCKS))
 
 
-def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool):
+def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool, what: str):
+    data, x = _operands(dia, x, what)
     lib = _kernels()
     n_rows, n_cols = dia.shape
+    adt = accum_dtype(data.dtype)
     blocks = _spmv_blocks(n_rows, lib.smt_dia_threads())
-    y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-    partials = (torch.empty(blocks, dtype=x.dtype, device=x.device)
+    y = torch.empty(n_rows, dtype=adt, device=x.device)
+    partials = (torch.empty(blocks, dtype=adt, device=x.device)
                 if with_dot else None)
     with torch.cuda.device(x.device):
-        rc = getattr(lib, f"smt_dia_spmv_{_SUFFIX[x.dtype]}")(
-            dia.data.data_ptr(), dia.offsets_dev.data_ptr(), len(dia.offsets),
+        rc = getattr(lib, f"smt_dia_spmv_{_SUFFIX[data.dtype]}")(
+            data.data_ptr(), dia.offsets_dev.data_ptr(), len(dia.offsets),
             n_rows, n_cols, x.data_ptr(), y.data_ptr(),
             partials.data_ptr() if with_dot else None, blocks,
             torch.cuda.current_stream(x.device).cuda_stream)
-    return y, partials, rc
+    _check(rc, what)
+    return y, partials
 
 
 # --- plain versions ----------------------------------------------------------
@@ -124,7 +144,8 @@ def dia_spmv_dot_ref(dia: DIA, x: torch.Tensor):
 
 
 def dia_spmv_chain_ref(dia: DIA, x: torch.Tensor, k: int) -> torch.Tensor:
-    """x ← Aᵏ x by k plain SpMVs."""
+    """x ← Aᵏ x by k plain SpMVs, in the accumulation dtype throughout."""
+    x = x.to(accum_dtype(torch.promote_types(dia.data.dtype, x.dtype)))
     for _ in range(int(k)):
         x = dia_spmv_ref(dia, x)
     return x
@@ -136,9 +157,7 @@ def dia_spmv(dia: DIA, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  CUDA: the ``dia_spmv_kernel``; CPU: the plain version."""
     if _on_cpu(dia, x):
         return dia_spmv_ref(dia, x)
-    _check_operands(dia, x, "dia_spmv")
-    y, _, rc = _launch_spmv(dia, x, with_dot=False)
-    _check(rc, "dia_spmv")
+    y, _ = _launch_spmv(dia, x, with_dot=False, what="dia_spmv")
     LAUNCHES["dia_spmv"] += 1
     return y
 
@@ -149,23 +168,21 @@ def dia_spmv_dot(dia: DIA, x: torch.Tensor):
     _require_square(dia, "dia_spmv_dot")
     if _on_cpu(dia, x):
         return dia_spmv_dot_ref(dia, x)
-    _check_operands(dia, x, "dia_spmv_dot")
-    y, partials, rc = _launch_spmv(dia, x, with_dot=True)
-    _check(rc, "dia_spmv_dot")
+    y, partials = _launch_spmv(dia, x, with_dot=True, what="dia_spmv_dot")
     LAUNCHES["dia_spmv_dot"] += 1
     return y, torch.sum(partials)
 
 
-def dia_chain_plan(dia: DIA) -> int:
-    """Grid of the one-launch chain kernel for this f32/f64 CUDA DIA: the
-    co-resident blocks, or fewer for a small matrix.  Raises on a device
-    without cooperative launch."""
+def dia_chain_plan(dia: DIA, dtype: torch.dtype) -> int:
+    """Grid of the one-launch chain kernel for this CUDA DIA run in
+    ``dtype`` (f32 or f64): the co-resident blocks, or fewer for a small
+    matrix.  Raises on a device without cooperative launch."""
     lib = _kernels()
-    key = (dia.data.device, dia.data.dtype)
+    key = (dia.data.device, dtype)
     if key not in _chain_max_blocks:
         nb = ctypes.c_int(0)
         with torch.cuda.device(dia.data.device):
-            rc = getattr(lib, f"smt_dia_chain_max_blocks_{_SUFFIX[dia.data.dtype]}")(
+            rc = getattr(lib, f"smt_dia_chain_max_blocks_{_CHAIN_SUFFIX[dtype]}")(
                 ctypes.byref(nb))
         _check(rc, "dia_chain_plan")
         _chain_max_blocks[key] = nb.value
@@ -177,24 +194,25 @@ def dia_chain_plan(dia: DIA) -> int:
 
 
 def dia_spmv_chain(dia: DIA, x: torch.Tensor, k: int) -> torch.Tensor:
-    """x ← Aᵏ x (square A).  CUDA: one launch of ``dia_chain_kernel``;
-    CPU: the plain version."""
+    """x ← Aᵏ x (square A), in the accumulation dtype of the operands.
+    CUDA: one launch of ``dia_chain_kernel``; CPU: the plain version."""
     _require_square(dia, "dia_spmv_chain")
     k = int(k)
     if k < 0:
         raise ValueError(f"dia_spmv_chain: k must be >= 0, got {k}")
     if _on_cpu(dia, x):
         return dia_spmv_chain_ref(dia, x, k)
-    _check_operands(dia, x, "dia_spmv_chain")
+    adt = accum_dtype(torch.promote_types(dia.data.dtype, x.dtype))
+    data, x = _operands(dia, x, "dia_spmv_chain", dtype=adt)
     if k == 0:
         return x.clone()
-    blocks = dia_chain_plan(dia)
+    blocks = dia_chain_plan(dia, adt)
     n = dia.shape[0]
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if k > 1 else out
     with torch.cuda.device(x.device):
-        rc = getattr(_kernels(), f"smt_dia_chain_{_SUFFIX[x.dtype]}")(
-            dia.data.data_ptr(), dia.offsets_dev.data_ptr(), len(dia.offsets),
+        rc = getattr(_kernels(), f"smt_dia_chain_{_CHAIN_SUFFIX[adt]}")(
+            data.data_ptr(), dia.offsets_dev.data_ptr(), len(dia.offsets),
             n, x.data_ptr(), out.data_ptr(), tmp.data_ptr(), k, blocks,
             torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "dia_spmv_chain")

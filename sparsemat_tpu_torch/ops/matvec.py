@@ -1,11 +1,12 @@
 """SpMV and its fused forms (counterpart of ``sparsemat_tpu/ops/matvec.py``).
 
-Dispatch by format: DIA goes to the DIA kernels (``kernels/dia.py``), which
-launch on CUDA tensors and take their plain versions on CPU tensors.  CSR
-and COO take the stream path: gather x by column, multiply, and reduce each
-row's segment in order.  The segmented reduction has no atomics (a
-scatter-add with ``index_add_`` would use them on CUDA), so reruns are
-bitwise equal.  The other formats' branches are not ported yet.
+Dispatch by format: DIA goes to the DIA kernels (``kernels/dia.py``) and
+StripELL to the strip kernel (``kernels/strip.py``); each launches on CUDA
+tensors and takes its plain version on CPU tensors.  CSR and COO take the
+stream path: gather x by column, multiply, and reduce each row's segment in
+order.  The segmented reduction has no atomics (a scatter-add with
+``index_add_`` would use them on CUDA), so reruns are bitwise equal.  The
+other formats' branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import torch
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..formats.dia import DIA
+from ..formats.strip import StripELL
 from ..kernels import dia as dia_kernels
+from ..kernels import strip as strip_kernels
 from ..types import accum_dtype
 
 
@@ -39,10 +42,16 @@ def _stream_spmv(indptr, cols, vals, x):
 
 # --- public dispatch ---------------------------------------------------------
 
-def spmv(mat, x) -> torch.Tensor:
-    """y = A @ x."""
+def spmv(mat, x, *, method: str | None = None) -> torch.Tensor:
+    """y = A @ x.  ``method``: None (by format) or 'strip' (freeze to
+    StripELL first, as the JAX package's ``method='strip'`` does)."""
     x = torch.as_tensor(x)
     _check_dims(mat, x)
+    if method not in (None, "strip"):
+        raise ValueError(f"spmv: method {method!r} is not ported")
+    if isinstance(mat, StripELL) or method == "strip":
+        st = mat if isinstance(mat, StripELL) else mat.to_strip()
+        return strip_kernels.strip_spmv(st, x)
     if isinstance(mat, DIA):
         return dia_kernels.dia_spmv(mat, x)
     if isinstance(mat, CSR):
@@ -55,8 +64,8 @@ def spmv(mat, x) -> torch.Tensor:
 
 def spmv_dot(mat, x):
     """(A @ x, x·(A @ x)) — CG's A·p and pᵀAp.  A square DIA fuses the dot
-    into the SpMV kernel (one pass over the matrix); other formats compose
-    spmv and a sum."""
+    into the SpMV kernel (one pass over the matrix); other formats (StripELL
+    included, as in the JAX package) compose spmv and a sum."""
     x = torch.as_tensor(x)
     _check_dims(mat, x, "spmv_dot")
     if isinstance(mat, DIA) and mat.shape[0] == mat.shape[1]:

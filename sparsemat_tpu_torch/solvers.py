@@ -1,14 +1,19 @@
-"""Conjugate Gradient (counterpart of ``sparsemat_tpu/solvers.py:41-148`` and
-its ``ConjugateGradient`` class wrapper).  The other solvers are not ported
-yet.
+"""Iterative solvers and preconditioners (counterpart of
+``sparsemat_tpu/solvers.py``): CG / PCG, BiCGStab, restarted GMRES,
+Chebyshev, (weighted) Jacobi, mixed-precision refinement (``refine``,
+``refine_host``), the Jacobi and block-Jacobi preconditioners, and the class
+wrappers.  ``sor``/``gauss_seidel`` are not ported yet: their sweep is a
+sequential row scan that needs its own GPU design.
 
-The reference compiles CG into one ``lax.while_loop``, with no host
-round-trip per iteration.  Here iterations run in fixed blocks of
-``SYNC_EVERY`` on the device: each iteration computes a device-side
-``active = (k < maxiter) & (rr >= thresh2)``, commits its update through
-``torch.where(active, new, old)`` and adds ``active`` to ``k``, and the host
-reads ``active`` once per block.  So ``iterations`` counts only active steps
-and the state freezes once converged, exactly as in the reference.
+The reference compiles each iteration into one ``lax.while_loop``, with no
+host round-trip per iteration.  Here ``_while`` runs the loop body in fixed
+blocks of ``SYNC_EVERY`` on the device: each step computes a device-side
+``active = cond(state)``, commits its update through
+``torch.where(active, new, old)``, and the host reads the condition once per
+block.  The state freezes once the condition fails and the counters count
+only active steps, so the final states and ``iterations`` equal the
+reference's.  GMRES keeps the reference's static restart window (its inner
+steps freeze instead of exiting) and reads the host once per cycle.
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .types import is_float_dtype
 
-#: CG iterations between two host reads of the convergence flag
+#: loop steps between two host reads of the loop condition
 SYNC_EVERY = 32
 
 
@@ -71,6 +78,45 @@ def _as_matvec_dot(A) -> Callable:
     return lambda v: spmv_dot(A, v)
 
 
+def _precond(M) -> Optional[Callable]:
+    return M.apply if hasattr(M, "apply") else M
+
+
+def _x0(b, x0):
+    return (torch.zeros_like(b) if x0 is None
+            else torch.as_tensor(x0, dtype=b.dtype, device=b.device))
+
+
+def _threshold(b, tol, rtol):
+    """max(tol, rtol·‖b‖) as a 0-d tensor of b's dtype."""
+    return torch.maximum(torch.full((), tol, dtype=b.dtype, device=b.device),
+                         rtol * torch.sqrt(_dot(b, b)))
+
+
+def _while(cond, body, state: dict, maxiter: int, on_step=None) -> dict:
+    """``lax.while_loop(cond, body, state)`` on the device for a loop whose
+    condition includes ``k < maxiter``: steps run in blocks of
+    ``SYNC_EVERY``, each committed only where ``cond`` held, and the host
+    reads ``cond`` once per block.  ``on_step(active, new)`` sees every
+    step (for histories)."""
+    for _ in range(-(-max(int(maxiter), 0) // SYNC_EVERY)):
+        for _ in range(SYNC_EVERY):
+            active = cond(state)
+            new = body(state)
+            if on_step is not None:
+                on_step(active, new)
+            state = {k: torch.where(active, new[k], v) for k, v in state.items()}
+        if not bool(cond(state)):
+            break
+    return state
+
+
+def _int32(v, device):
+    return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+# --- Conjugate Gradient ------------------------------------------------------
+
 def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
        maxiter: int = 10_000, M=None, record_history: bool = False):
     """Conjugate Gradient.  Convergence: ‖r‖ < max(tol, rtol·‖b‖).  ``M``:
@@ -80,58 +126,405 @@ def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     b = _check_operands(A, b)
     matvec = _as_matvec(A)
     matvec_dot = _as_matvec_dot(A)
-    x = (torch.zeros_like(b) if x0 is None
-         else torch.as_tensor(x0, dtype=b.dtype, device=b.device))
-    precond = M.apply if hasattr(M, "apply") else M
-
-    threshold = torch.maximum(torch.full((), tol, dtype=b.dtype, device=b.device),
-                              rtol * torch.sqrt(_dot(b, b)))
+    precond = _precond(M)
+    threshold = _threshold(b, tol, rtol)
     thresh2 = threshold * threshold
 
+    x = _x0(b, x0)
     r = b - matvec(x)
     z = precond(r) if precond is not None else r
-    p = z
-    rz = _dot(r, z)
-    rr = _dot(r, r)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    state = dict(x=x, r=r, p=z, rz=_dot(r, z), rr=_dot(r, r),
+                 k=_int32(0, b.device))
+
+    def cond(s):
+        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+
+    def body(s):
+        Ap, pAp = matvec_dot(s["p"])
+        # guarded divisions: a breakdown (pAp = 0) stalls instead of
+        # poisoning the state with NaN
+        alpha = torch.where(pAp != 0, s["rz"] / pAp, 0)
+        x = s["x"] + alpha * s["p"]
+        r = s["r"] - alpha * Ap
+        z = precond(r) if precond is not None else r
+        rz = _dot(r, z)
+        beta = torch.where(s["rz"] != 0, rz / s["rz"], 0)
+        return dict(x=x, r=r, p=z + beta * s["p"], rz=rz, rr=_dot(r, r),
+                    k=s["k"] + 1)
+
     hist = []
+    on_step = None
+    if record_history:
+        def on_step(active, new):
+            hist.append(torch.where(active, torch.sqrt(new["rr"]), -1.0))
 
-    for _ in range(-(-maxiter // SYNC_EVERY)):
-        for _ in range(SYNC_EVERY):
-            active = (k < maxiter) & (rr >= thresh2)
-            Ap, pAp = matvec_dot(p)
-            # guarded divisions: a breakdown (pAp = 0) stalls instead of
-            # poisoning the state with NaN
-            alpha = torch.where(pAp != 0, rz / pAp, 0)
-            x_new = x + alpha * p
-            r_new = r - alpha * Ap
-            z = precond(r_new) if precond is not None else r_new
-            rz_new = _dot(r_new, z)
-            rr_new = _dot(r_new, r_new)
-            beta = torch.where(rz != 0, rz_new / rz, 0)
-            p_new = z + beta * p
-            if record_history:
-                hist.append(torch.where(active, torch.sqrt(rr_new), -1.0))
-            x = torch.where(active, x_new, x)
-            r = torch.where(active, r_new, r)
-            p = torch.where(active, p_new, p)
-            rz = torch.where(active, rz_new, rz)
-            rr = torch.where(active, rr_new, rr)
-            k = k + active.to(torch.int32)
-        # one host read per block
-        if not bool((k < maxiter) & (rr >= thresh2)):
-            break
-
+    out = _while(cond, body, state, maxiter, on_step)
     history = None
     if record_history:
         history = torch.full((maxiter,), -1.0, dtype=b.dtype, device=b.device)
         if hist:
             h = torch.stack(hist)[:maxiter]
             history[:h.shape[0]] = h
-    res = torch.sqrt(rr)
-    return x, SolveInfo(iterations=k, residual_norm=res,
-                        converged=res < threshold, residual_history=history)
+    res = torch.sqrt(out["rr"])
+    return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
+                               converged=res < threshold, residual_history=history)
 
+
+# --- BiCGStab (nonsymmetric systems) ----------------------------------------
+
+def bicgstab(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
+             maxiter: int = 10_000, M=None):
+    """Biconjugate gradient stabilized, optionally right-preconditioned."""
+    b = _check_operands(A, b)
+    matvec = _as_matvec(A)
+    precond = _precond(M) or (lambda v: v)
+    threshold = _threshold(b, tol, rtol)
+
+    x = _x0(b, x0)
+    r0 = b - matvec(x)
+    rhat = r0
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    state = dict(x=x, r=r0, p=r0, v=torch.zeros_like(b), rho=_dot(rhat, r0),
+                 alpha=one, omega=one, k=_int32(0, b.device), rr=_dot(r0, r0))
+
+    def cond(s):
+        return (s["k"] < maxiter) & (torch.sqrt(s["rr"]) >= threshold)
+
+    def body(s):
+        phat = precond(s["p"])
+        v = matvec(phat)
+        rv = _dot(rhat, v)
+        alpha = torch.where(rv != 0, s["rho"] / rv, 0)
+        h = s["x"] + alpha * phat
+        sres = s["r"] - alpha * v
+        shat = precond(sres)
+        t = matvec(shat)
+        tt = _dot(t, t)
+        omega = torch.where(tt > 0, _dot(t, sres) / tt, 0.0)
+        x = h + omega * shat
+        r = sres - omega * t
+        rho = _dot(rhat, r)
+        beta = torch.where((s["rho"] != 0) & (omega != 0),
+                           (rho / s["rho"]) * (alpha / omega), 0)
+        p = r + beta * (s["p"] - omega * v)
+        return dict(x=x, r=r, p=p, v=v, rho=rho, alpha=alpha, omega=omega,
+                    k=s["k"] + 1, rr=_dot(r, r))
+
+    out = _while(cond, body, state, maxiter)
+    res = torch.sqrt(out["rr"])
+    return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
+                               converged=res < threshold)
+
+
+# --- GMRES(restart) ----------------------------------------------------------
+
+def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
+          restart: int = 30, maxiter: int = 10_000, M=None):
+    """Restarted GMRES over a static restart window: the Krylov basis V is
+    (restart+1, n), Givens rotations keep the Hessenberg matrix's QR so the
+    residual is known every step, and a converged cycle's remaining steps
+    freeze (identity columns) instead of exiting.  ``maxiter`` counts inner
+    steps; ``iterations`` counts whole cycles × restart, as the reference
+    does.  One host read per cycle."""
+    b = _check_operands(A, b)
+    matvec = _as_matvec(A)
+    precond = _precond(M) or (lambda v: v)
+    m = int(restart)
+    dt, dev = b.dtype, b.device
+    threshold = _threshold(b, tol, rtol)
+    n_cycles = max(-(-int(maxiter) // m), 1)
+    steps_idx = torch.arange(m + 1, device=dev)
+
+    def cycle(x):
+        r = b - matvec(x)
+        beta = torch.sqrt(_dot(r, r))
+        V = torch.zeros((m + 1, b.shape[0]), dtype=dt, device=dev)
+        V[0] = torch.where(beta > 0, r / torch.where(beta > 0, beta, 1), 0)
+        H = torch.zeros((m + 1, m), dtype=dt, device=dev)
+        g = torch.zeros(m + 1, dtype=dt, device=dev)
+        g[0] = beta
+        # rot[i] = [[c_i, s_i], [-s_i, c_i]], the i-th Givens rotation
+        rot = torch.eye(2, dtype=dt, device=dev).repeat(m, 1, 1)
+        active = beta >= threshold
+        steps = _int32(0, dev)
+        for j in range(m):
+            w = matvec(precond(V[j]))
+            # modified Gram-Schmidt against the basis (rows > j are zero)
+            h = torch.where(steps_idx <= j, V @ w, 0)
+            w = w - V.T @ h
+            h_next = torch.sqrt(_dot(w, w))
+            v_next = torch.where(h_next > 0, w / torch.where(h_next > 0, h_next, 1), 0)
+            hcol = h.clone()
+            hcol[j + 1] = h_next
+            for i in range(j):       # the previous rotations, in order
+                hcol[i:i + 2] = rot[i] @ hcol[i:i + 2]
+            hj, hj1 = hcol[j].clone(), hcol[j + 1].clone()
+            denom = torch.sqrt(hj ** 2 + hj1 ** 2)
+            safe = torch.where(denom > 0, denom, 1)
+            c_j = torch.where(denom > 0, hj / safe, 1.0)
+            s_j = torch.where(denom > 0, hj1 / safe, 0.0)
+            hcol[j] = c_j * hj + s_j * hj1
+            hcol[j + 1] = 0.0
+            g_new = g.clone()
+            g_new[j] = c_j * g[j]
+            g_new[j + 1] = -s_j * g[j]
+            still = active & (torch.abs(g_new[j + 1]) >= threshold) & (h_next > 0)
+            # a frozen step gets an identity column, so back-substitution
+            # yields 0 for it
+            eye_col = (steps_idx == j).to(dt)
+            V[j + 1] = torch.where(active, v_next, 0)
+            H[:, j] = torch.where(active, hcol, eye_col)
+            c_j = torch.where(active, c_j, 1.0)
+            s_j = torch.where(active, s_j, 0.0)
+            rot[j] = torch.stack([torch.stack([c_j, s_j]), torch.stack([-s_j, c_j])])
+            g = torch.where(active, g_new, g)
+            steps = steps + active.to(torch.int32)
+            active = still
+        # g past the active steps is masked: the first frozen slot carries
+        # the final residual, which must not leak into the correction
+        g_solve = torch.where(steps_idx[:m] < steps, g[:m], 0)
+        y = torch.linalg.solve_triangular(H[:m, :m], g_solve[:, None], upper=True)[:, 0]
+        x = x + precond(V[:m].T @ y)
+        r2 = b - matvec(x)
+        return x, torch.sqrt(_dot(r2, r2))
+
+    x = _x0(b, x0)
+    r0 = b - matvec(x)
+    res = torch.sqrt(_dot(r0, r0))
+    k = 0
+    while k < n_cycles * m and not bool(res < threshold):
+        x, res = cycle(x)
+        k += m
+    return x, SolveInfo(iterations=_int32(k, dev), residual_norm=res,
+                        converged=res < threshold)
+
+
+# --- Chebyshev ----------------------------------------------------------------
+
+def chebyshev(A, b, x0=None, *, lambda_min: float, lambda_max: float,
+              tol: float = 1e-12, rtol: float = 0.0, maxiter: int = 10_000):
+    """Chebyshev semi-iteration for SPD systems with known spectral bounds
+    [lambda_min, lambda_max].  No inner products in the update."""
+    b = _check_operands(A, b)
+    matvec = _as_matvec(A)
+    theta = (lambda_max + lambda_min) / 2.0
+    delta = (lambda_max - lambda_min) / 2.0
+    sigma1 = theta / delta
+    threshold = _threshold(b, tol, rtol)
+    thresh2 = threshold * threshold
+
+    state = dict(x=_x0(b, x0), d=torch.zeros_like(b),
+                 rho=torch.tensor(sigma1, dtype=b.dtype, device=b.device),
+                 k=_int32(0, b.device),
+                 rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+
+    def cond(s):
+        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+
+    def body(s):
+        r = b - matvec(s["x"])
+        first = s["k"] == 0
+        rho = torch.where(first, 1.0 / sigma1, 1.0 / (2.0 * sigma1 - s["rho"]))
+        d = torch.where(first, r / theta,
+                        rho * s["rho"] * s["d"] + (2.0 * rho / delta) * r)
+        return dict(x=s["x"] + d, d=d, rho=rho, k=s["k"] + 1, rr=_dot(r, r))
+
+    out = _while(cond, body, state, maxiter)
+    res = torch.sqrt(out["rr"])
+    return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
+                               converged=res < threshold)
+
+
+# --- Jacobi ------------------------------------------------------------------
+
+def jacobi(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
+           maxiter: int = 10_000, omega: float = 1.0):
+    """(Weighted) Jacobi iteration: x ← x + ω D⁻¹ (b − A x)."""
+    b = _check_operands(A, b)
+    matvec = _as_matvec(A)
+    if not hasattr(A, "to_csr"):
+        raise TypeError("jacobi needs a sparse format (for its diagonal)")
+    d = A.to_csr().diagonal().to(b.dtype)
+    dinv = torch.where(d != 0, 1.0 / d, 0.0)
+    threshold = _threshold(b, tol, rtol)
+    thresh2 = threshold * threshold
+
+    state = dict(x=_x0(b, x0), k=_int32(0, b.device),
+                 rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+
+    def cond(s):
+        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+
+    def body(s):
+        r = b - matvec(s["x"])
+        return dict(x=s["x"] + omega * dinv * r, k=s["k"] + 1, rr=_dot(r, r))
+
+    out = _while(cond, body, state, maxiter)
+    res = torch.sqrt(out["rr"])
+    return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
+                               converged=res < threshold)
+
+
+# --- mixed-precision iterative refinement ------------------------------------
+
+def _refine_outer(residual, correct, threshold: float, max_outer: int):
+    """The outer loop of both refinements: ``residual()`` → (r, ‖r‖ as a
+    float) in high precision; ``correct(r, ‖r‖)`` solves the scaled
+    correction system, updates x and returns its inner iterations.  Stops
+    at the threshold, or after two outer steps in a row that do not halve
+    ‖r‖.  Returns (per-outer ‖r‖ history, total inner iterations)."""
+    hist = []
+    total_inner = 0
+    prev_norm = np.inf
+    stalled = 0
+    for _ in range(max_outer):
+        r, rnorm = residual()
+        hist.append(rnorm)
+        if rnorm <= threshold:
+            break
+        if rnorm >= 0.5 * prev_norm:
+            stalled += 1
+            if stalled >= 2:                    # refinement no longer gaining
+                break
+        else:
+            stalled = 0
+        prev_norm = rnorm
+        total_inner += correct(r, rnorm)
+    return hist, total_inner
+
+
+def refine(A, b, x0=None, *, tol: float = 1e-8, rtol: float = 0.0,
+           max_outer: int = 40, inner=cg, inner_rtol: float = 1e-2,
+           inner_maxiter: int = 4000, low_dtype=torch.float32,
+           A_low=None, M=None):
+    """Mixed-precision iterative refinement: high-precision (b's dtype,
+    typically f64) residuals steer low-precision inner solves of A d = r,
+    each to a relative reduction ``inner_rtol`` on the system scaled to
+    ‖r‖ = 1.  ``A_low`` defaults to ``A.astype(low_dtype)``.  Returns
+    (x, SolveInfo) with ``iterations`` counting all inner iterations and
+    ``residual_history`` the ‖r‖ of each outer step."""
+    b = _check_operands(A, b)
+    hi, dev = b.dtype, b.device
+    matvec = _as_matvec(A)
+    if A_low is None:
+        A_low = A.astype(low_dtype) if hasattr(A, "astype") else A
+    x = _x0(b, x0)
+    threshold = float(max(tol, rtol * float(torch.linalg.norm(b))))
+
+    def residual():
+        r = b - matvec(x)                       # one high-precision SpMV
+        return r, float(torch.linalg.norm(r))   # one host read per outer step
+
+    def correct(r, rnorm):
+        nonlocal x
+        d, info = inner(A_low, (r / rnorm).to(low_dtype), tol=0.0,
+                        rtol=inner_rtol, maxiter=inner_maxiter, M=M)
+        x = x + d.to(hi) * rnorm
+        return int(info.iterations)
+
+    hist, total_inner = _refine_outer(residual, correct, threshold, max_outer)
+    rnorm = float(torch.linalg.norm(b - matvec(x)))
+    return x, SolveInfo(
+        iterations=_int32(total_inner, dev),
+        residual_norm=torch.tensor(rnorm, dtype=hi, device=dev),
+        converged=torch.tensor(rnorm <= threshold, device=dev),
+        residual_history=torch.tensor(hist, dtype=hi, device=dev))
+
+
+def refine_host(A_high, b, x0=None, *, tol: float = 1e-8, rtol: float = 0.0,
+                max_outer: int = 40, inner=cg, A_low=None,
+                inner_rtol: float = 1e-2, inner_maxiter: int = 4000,
+                low_dtype=torch.float32, M=None):
+    """Iterative refinement with the high-precision half on the host: the
+    outer residual r = b − A x is a host numpy/scipy float64 SpMV
+    (``A_high``: scipy sparse matrix, numpy array or callable), the inner
+    solves run in ``low_dtype`` on the device operator ``A_low``
+    (required).  Returns (x as float64 numpy, SolveInfo); the info's norms
+    are float32, as the reference's are."""
+    if A_low is None:
+        raise ValueError("refine_host needs A_low, the low-precision device operator")
+    matvec = A_high if (callable(A_high) and not hasattr(A_high, "shape")) \
+        else (lambda v: A_high @ v)
+    b = np.asarray(b, np.float64)
+    x = np.zeros_like(b) if x0 is None else np.asarray(x0, np.float64).copy()
+    threshold = float(max(tol, rtol * np.linalg.norm(b)))
+
+    def residual():
+        r = b - matvec(x)                       # host f64 SpMV
+        return r, float(np.linalg.norm(r))
+
+    def correct(r, rnorm):
+        nonlocal x
+        r_low = torch.from_numpy(r / rnorm).to(device=A_low.device, dtype=low_dtype)
+        d, info = inner(A_low, r_low, tol=0.0, rtol=inner_rtol,
+                        maxiter=inner_maxiter, M=M)
+        x = x + d.double().cpu().numpy() * rnorm
+        return int(info.iterations)
+
+    hist, total_inner = _refine_outer(residual, correct, threshold, max_outer)
+    rnorm = float(np.linalg.norm(b - matvec(x)))
+    return x, SolveInfo(
+        iterations=torch.tensor(total_inner, dtype=torch.int32),
+        residual_norm=torch.tensor(rnorm, dtype=torch.float32),
+        converged=torch.tensor(rnorm <= threshold),
+        residual_history=torch.tensor(hist, dtype=torch.float32))
+
+
+# --- preconditioners ---------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class JacobiPreconditioner:
+    """M⁻¹ = D⁻¹."""
+
+    dinv: torch.Tensor
+
+    @classmethod
+    def from_matrix(cls, A) -> "JacobiPreconditioner":
+        d = A.to_csr().diagonal()
+        return cls(dinv=torch.where(d != 0, 1.0 / d, 0.0))
+
+    def apply(self, r):
+        return self.dinv.to(r.dtype) * r
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockJacobiPreconditioner:
+    """M⁻¹ = blockdiag(A₀₀⁻¹, A₁₁⁻¹, …) over contiguous ``block_size``-row
+    blocks: the block diagonal is densified once, inverted with one batched
+    ``torch.linalg.inv``, and applied as one batched product.  Structurally
+    empty diagonal slots (and the padded tail of the last block) get a unit
+    pivot so every block is invertible."""
+
+    blocks_inv: torch.Tensor  # (n_blocks, bs, bs)
+    n: int
+
+    @classmethod
+    def from_matrix(cls, A, block_size: int = 64) -> "BlockJacobiPreconditioner":
+        coo = A.to_csr().to_coo()
+        n = A.shape[0]
+        bs = block_size
+        nb = -(-n // bs)
+        r = coo.rows.long()
+        c = coo.cols.long()
+        keep = (r // bs == c // bs) & (r < n)
+        r, c = r[keep], c[keep]
+        blocks = torch.zeros((nb, bs, bs), dtype=coo.vals.dtype, device=coo.vals.device)
+        # canonical CSR entries are unique, so the scatter needs no order
+        blocks.index_put_((r // bs, r % bs, c % bs), coo.vals[keep], accumulate=True)
+        diag = torch.diagonal(blocks, dim1=1, dim2=2)
+        fix = (diag == 0).to(blocks.dtype)
+        blocks = blocks + fix[:, :, None] * torch.eye(bs, dtype=blocks.dtype,
+                                                      device=blocks.device)
+        return cls(blocks_inv=torch.linalg.inv(blocks), n=n)
+
+    def apply(self, r):
+        nb, bs, _ = self.blocks_inv.shape
+        rp = F.pad(r, (0, nb * bs - self.n)).reshape(nb, bs, 1)
+        z = torch.bmm(self.blocks_inv.to(r.dtype), rp)
+        return z.reshape(-1)[: self.n]
+
+
+# --- class-style API ---------------------------------------------------------
 
 @dataclasses.dataclass
 class ConjugateGradient:
@@ -144,3 +537,34 @@ class ConjugateGradient:
     def solve(self, mat, b, x=None):
         """Returns (x, info)."""
         return cg(mat, b, x0=x, tol=self.tol, maxiter=self.iter_max)
+
+
+@dataclasses.dataclass
+class Jacobi:
+    tol: float = 1e-12
+    iter_max: int = 10_000
+    omega: float = 1.0
+
+    def solve(self, mat, b, x=None):
+        return jacobi(mat, b, x0=x, tol=self.tol, maxiter=self.iter_max,
+                      omega=self.omega)
+
+
+@dataclasses.dataclass
+class BiCGStab:
+    tol: float = 1e-12
+    iter_max: int = 10_000
+
+    def solve(self, mat, b, x=None):
+        return bicgstab(mat, b, x0=x, tol=self.tol, maxiter=self.iter_max)
+
+
+@dataclasses.dataclass
+class GMRES:
+    tol: float = 1e-12
+    iter_max: int = 10_000
+    restart: int = 30
+
+    def solve(self, mat, b, x=None):
+        return gmres(mat, b, x0=x, tol=self.tol, maxiter=self.iter_max,
+                     restart=self.restart)

@@ -153,6 +153,33 @@ def test_dia_spmm_matches_xla():
     assert rel_err(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("op", ["spmv", "spmv_dot", "spmv_chain"])
+@pytest.mark.parametrize("dt_mat,dt_x", [("bfloat16", "bfloat16"), ("float16", "float16"),
+                                         ("float32", "float64"), ("bfloat16", "float32")])
+def test_low_precision_and_mixed_dia_matches_reference(op, dt_mat, dt_x):
+    """bf16/f16 and mixed-dtype DIA ops against ``sparsemat_tpu`` on the same
+    values: the same result dtype (bf16/f16 accumulate in f32), values
+    within 1e-5 of max|ref| (1e-12 for f64: both widen the same values)."""
+    import jax.numpy as jnp
+
+    jsm, _ = ref()
+    m = banded(3000, (-300, -1, 0, 1, 300), seed=11, scale=0.3)
+    x = np.random.default_rng(12).standard_normal(3000).astype(np.float32)
+    jd = jsm.CSR.from_scipy(m).to_dia().astype(getattr(jnp, dt_mat))
+    td = tsm.CSR.from_scipy(m).to_dia().astype(getattr(torch, dt_mat))
+    jx = jnp.asarray(x).astype(getattr(jnp, dt_x))
+    tx = torch.from_numpy(x).to(getattr(torch, dt_x))
+    args = (2,) if op == "spmv_chain" else ()
+    want = getattr(jsm, op)(jd, jx, *args)
+    got = getattr(tsm, op)(td, tx, *args)
+    want = want if op == "spmv_dot" else [want]
+    got = got if op == "spmv_dot" else [got]
+    tol = 1e-12 if "float64" in (dt_mat, dt_x) else 1e-5
+    for g, w in zip(got, want):
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
+        assert rel_err(g.float() if g.dtype == torch.bfloat16 else g, w) < tol
+
+
 # -- the CSR/COO stream path ----------------------------------------------------
 
 def test_csr_stream_matches_reference_and_reruns_bitwise():
@@ -284,11 +311,37 @@ def test_cuda_kernels_rerun_bitwise(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt_mat,dt_x", [(torch.bfloat16, torch.bfloat16),
+                                         (torch.float16, torch.float16),
+                                         (torch.float32, torch.float64),
+                                         (torch.bfloat16, torch.float32)])
+def test_cuda_low_precision_and_mixed_kernels_match_plain(cuda, dt_mat, dt_x):
+    """bf16/f16 storage (accumulated in f32) and mixed operands (promoted)
+    run through the kernels and match the plain versions."""
+    td = tsm.CSR.from_scipy(banded(20000, (-4096, -1, 0, 1, 4096), scale=0.3),
+                            device=cuda).to_dia().astype(dt_mat)
+    x = torch.randn(20000, device=cuda).to(dt_x)
+    tol = 1e-12 if torch.float64 in (dt_mat, dt_x) else 1e-5
+    kd.reset_launches()
+    y, y_ref = kd.dia_spmv(td, x), kd.dia_spmv_ref(td, x)
+    assert y.dtype == y_ref.dtype
+    assert rel_err(y.cpu(), y_ref.cpu()) < tol
+    (y, d), (y_ref, d_ref) = kd.dia_spmv_dot(td, x), kd.dia_spmv_dot_ref(td, x)
+    assert rel_err(y.cpu(), y_ref.cpu()) < tol
+    assert rel_err(d.item(), d_ref.item()) < max(tol, 1e-4)
+    for k in (1, 3):
+        got, want = kd.dia_spmv_chain(td, x, k), kd.dia_spmv_chain_ref(td, x, k)
+        assert got.dtype == want.dtype
+        assert rel_err(got.cpu(), want.cpu()) < tol
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == {"dia_spmv": 1, "dia_spmv_dot": 1, "dia_spmv_chain": 2}
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     td = tsm.CSR.from_scipy(banded(64, (-1, 0, 1)), device=cuda).to_dia()
-    bf = tsm.DIA(data=td.data.bfloat16(), offsets=td.offsets, shape=td.shape)
     with pytest.raises(TypeError):
-        kd.dia_spmv(bf, torch.zeros(64, dtype=torch.bfloat16, device=cuda))
+        kd.dia_spmv(td, torch.zeros(64, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         kd.dia_spmv(td, torch.zeros(64))                 # vector on the CPU
     with pytest.raises(ValueError):
