@@ -2,13 +2,18 @@
 
 Run from the repo root with no arguments:  python3 chip_smoke.py
 
-Two paths of the JAX package run here.  The banded path: SparseBuilder
+Three paths of the JAX package run here.  The banded path: SparseBuilder
 assembly → CSR → DIA → spmv / spmv_dot / spmv_chain → solvers.cg, on the
 2-D 5-point Poisson operator at 2048² = 4,194,304 rows (the reference
 benchmark's cg_f32_4M).  The FEM path: SparseBuilder assembly → CSR →
 StripELL → spmv → the preconditioned solvers, on the pwtk-class surrogate
 ``matgen.fem_block_band()`` at its full 217,920 rows (the reference
-benchmark's fem config), made SPD by a dominant diagonal.
+benchmark's fem config), made SPD by a dominant diagonal.  The circuit
+path: io.save_mtx → io.load_mtx → CSR → RouteStream → checkpoint.save_matrix
+/ load_matrix → spmv through the two route kernels → BiCGStab, GMRES(30),
+Jacobi and PCG(Jacobi), on the scircuit-class surrogate
+``matgen.circuit_scatter() * 2e-2`` at its full 170,998 rows (the reference
+benchmark's config 4a).
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
@@ -41,23 +46,46 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 included) and the kernel's device time (profiler), GB/s, and
                 PCG(Jacobi) iterations/s through the kernel and the plain
                 version
+ 13 route       both route kernels against their plain halves (staging on
+                the regions' rows, y from the same staging, and the SpMV),
+                f32, f64 and bf16 values: the JAX package's test shapes,
+                heavy Zipf rows, a stored zero, rectangular 300×250, empty
+                5×7, 3×3, and a layout with two splits
+ 14 circuit     the circuit path at full size: save_mtx / load_mtx (the C++
+                parser), to_route, a RouteStream checkpoint reloaded to the
+                card (its spmv bitwise equal), spmv vs the CSR stream path,
+                BiCGStab, GMRES(30), Jacobi on the nonsymmetric operator and
+                PCG(Jacobi) on a symmetric variant, true residuals in f64 on
+                the host; the route launch counters must be > 0; each kernel
+                vs its plain version at full size, f32 and f64
+ 15 determinism route spmv and the BiCGStab run rerun bitwise
+ 16 times       each route kernel vs its plain half and the route SpMV vs its
+                plain version (CUDA events, per call), device times
+                (profiler), GB/s of RouteStream.spmv_traffic_bytes, BiCGStab
+                iterations/s through the kernels and the plain version, and
+                the host seconds of the path's steps
 Then a JSON line of the kernels and, last, the device JSON line.
 
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
-64 CG iterations through the kernels at 512² and 2048² and of 64 PCG(Jacobi)
-iterations on the FEM StripELL, and prints the device time per iteration by
-kernel and the device's busy share of wall time.
+64 CG iterations through the kernels at 512² and 2048², of 64 PCG(Jacobi)
+iterations on the FEM StripELL and of 64 BiCGStab iterations on the circuit
+RouteStream, and prints the device time per iteration by kernel and the
+device's busy share of wall time.
 
 Tolerances (relative to max|reference|): f32 y 1e-5 (the same sums,
-rounded with and without fused multiply-add, and for the strip kernel in
-another order), f32 dot 1e-4 (another summation order), f64 1e-12.  bf16
-and f16 operands are widened to f32 by both versions and held to the f32
-tolerance.
+rounded with and without fused multiply-add, and for the strip and route
+kernels in another order: the route reduce sums each segment directly
+where its plain version differences a prefix sum), f32 dot 1e-4 (another
+summation order), f64 1e-12.  bf16 and f16 operands are widened to f32 by
+both versions and held to the f32 tolerance.  Matrix products run in full
+f32 (TF32 is switched off below).
 """
 
 import argparse
 import json
+import os
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -66,8 +94,10 @@ import scipy.sparse as sp
 import torch
 
 import sparsemat_tpu_torch as tsm
-from sparsemat_tpu_torch import matgen, solvers
+from sparsemat_tpu_torch import checkpoint, matgen, solvers
+from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch.kernels import dia as kd
+from sparsemat_tpu_torch.kernels import route as kr
 from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.native import get_lib
 
@@ -77,14 +107,18 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
            "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
            "strip_spmv": ("sparsemat_tpu_torch/csrc/strip.cu",
-                          "sparsemat_tpu/kernels/strip.py:42")}
+                          "sparsemat_tpu/kernels/strip.py:42"),
+           "route_gather": ("sparsemat_tpu_torch/csrc/route.cu",
+                            "sparsemat_tpu/kernels/route.py:102"),
+           "route_reduce": ("sparsemat_tpu_torch/csrc/route.cu",
+                            "sparsemat_tpu/kernels/route.py:198")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
-#: FEM solves: relative tolerance, and the bound on the true relative
-#: residual (f64, host) each converged solve must meet
-FEM_RTOL = 1e-5
-FEM_TRUE_REL = 1e-4
+#: solves of the FEM and circuit paths: relative tolerance, and the bound on
+#: the true relative residual (f64, host) each converged solve must meet
+SOLVE_RTOL = 1e-5
+SOLVE_TRUE_REL = 1e-4
 
 MAX_ABS = {name: 0.0 for name in KERNELS}
 
@@ -213,7 +247,7 @@ def build_all():
         return out, time.perf_counter() - t0
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
-            "C++ assembly store": get_lib}
+            "csrc/route.cu": kr._kernels, "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         results = {name: f.result() for name, f in futs.items()}
@@ -314,34 +348,42 @@ def device_us(fn, iters, key):
     return us / iters
 
 
-def profile_cg(dev, iters=64):
-    """Device time per CG iteration by kernel, and the device's busy share
-    of the wall time with and without the profiler: CG on the 512² and
-    2048² Poisson DIA, and PCG(Jacobi) on the FEM StripELL."""
+def profile_solvers(dev, iters=64):
+    """Device time per solver iteration by kernel, and the device's busy
+    share of the wall time with and without the profiler: CG on the 512²
+    and 2048² Poisson DIA, PCG(Jacobi) on the FEM StripELL, and BiCGStab on
+    the circuit RouteStream."""
     from torch.profiler import ProfilerActivity, profile
 
     cases = []
     for n in (512, 2048):
         csr, dia, _ = assemble_poisson(n, dev)
         b = tsm.spmv(csr, torch.randn(n * n, generator=gen(dev), device=dev))
-        cases.append((f"CG {n}²", dia, b, None))
+        cases.append((f"CG {n}²", lambda k, A=dia, b=b: solvers.cg(A, b, tol=0.0, maxiter=k)))
     rows, cols, vals, n, _ = fem_triplets()
     csr, st, _ = assemble_strip(rows, cols, vals, n, dev)
-    cases.append(("PCG(Jacobi) fem StripELL", st,
-                  torch.randn(n, generator=gen(dev), device=dev),
-                  solvers.JacobiPreconditioner.from_matrix(csr)))
-    for label, A, b, M in cases:
+    Mj = solvers.JacobiPreconditioner.from_matrix(csr)
+    b = torch.randn(n, generator=gen(dev), device=dev)
+    cases.append(("PCG(Jacobi) fem StripELL",
+                  lambda k, b=b: solvers.cg(st, b, tol=0.0, maxiter=k, M=Mj)))
+    rs = tsm.CSR.from_scipy((matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr(),
+                            device=dev).to_route()
+    b = torch.randn(rs.shape[0], generator=gen(dev), device=dev)
+    cases.append(("BiCGStab circuit RouteStream",
+                  lambda k, b=b: solvers.bicgstab(rs, b, tol=0.0, maxiter=k)))
+    for label, solve in cases:
+        solve(4)                        # builds the launch plan outside the timing
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solvers.cg(A, b, tol=0.0, maxiter=iters, M=M)
+            solve(iters)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e6 / iters)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solvers.cg(A, b, tol=0.0, maxiter=iters, M=M)
+            solve(iters)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6 / iters
         kern = [e for e in prof.key_averages()
@@ -424,20 +466,20 @@ def fem_phases(dev, g, times, launches):
     def solved(label, x_, info, A_csr, b_):
         rel = true_rel(A_csr, x_, b_)
         check(bool(info.converged), f"{label} did not converge in {int(info.iterations)}")
-        check(rel <= FEM_TRUE_REL, f"{label}: true relative residual {rel:.3e} > {FEM_TRUE_REL}")
+        check(rel <= SOLVE_TRUE_REL, f"{label}: true relative residual {rel:.3e} > {SOLVE_TRUE_REL}")
         report[label] = (int(info.iterations), rel)
 
-    x_pcg, info_pcg = solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mj)
+    x_pcg, info_pcg = solvers.cg(st, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mj)
     solved("PCG(Jacobi)", x_pcg, info_pcg, csr, b)
     Mb = solvers.BlockJacobiPreconditioner.from_matrix(csr, block_size=64)
     solved("PCG(block-Jacobi 64)",
-           *solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mb), csr, b)
-    solved("BiCGStab", *solvers.bicgstab(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000), csr, b)
-    solved("GMRES(30)", *solvers.gmres(st, b, tol=0.0, rtol=FEM_RTOL, restart=30,
+           *solvers.cg(st, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mb), csr, b)
+    solved("BiCGStab", *solvers.bicgstab(st, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000), csr, b)
+    solved("GMRES(30)", *solvers.gmres(st, b, tol=0.0, rtol=SOLVE_RTOL, restart=30,
                                        maxiter=3000), csr, b)
     solved("Chebyshev", *solvers.chebyshev(st, b, lambda_min=1.0, lambda_max=lam_max, tol=0.0,
-                                           rtol=FEM_RTOL, maxiter=5000), csr, b)
-    solved("Jacobi", *solvers.jacobi(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=5000), csr, b)
+                                           rtol=SOLVE_RTOL, maxiter=5000), csr, b)
+    solved("Jacobi", *solvers.jacobi(st, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=5000), csr, b)
 
     # f32 PCG run far past where it stalls, then refinement: f64 residuals
     # through the f64 strip kernel steer f32 inner PCG solves
@@ -456,9 +498,9 @@ def fem_phases(dev, g, times, launches):
     sym = tsm.spmv(st_ns, x) - tsm.spmv(st, x)
     check(float(sym.abs().max()) > 0.1, "the skew band made no difference")
     solved("BiCGStab nonsymmetric",
-           *solvers.bicgstab(st_ns, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000), csr_ns, b)
+           *solvers.bicgstab(st_ns, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000), csr_ns, b)
     solved("GMRES(30) nonsymmetric",
-           *solvers.gmres(st_ns, b, tol=0.0, rtol=FEM_RTOL, restart=30, maxiter=3000),
+           *solvers.gmres(st_ns, b, tol=0.0, rtol=SOLVE_RTOL, restart=30, maxiter=3000),
            csr_ns, b)
     torch.cuda.synchronize()
     launches["strip_spmv"] = ks.LAUNCHES["strip_spmv"]
@@ -476,7 +518,7 @@ def fem_phases(dev, g, times, launches):
         f"to_strip {t_strip:.3f} s; {len(st.parts)} parts, c_total {min(parts)}–{max(parts)}, "
         f"nse {st.nse}, fill {st.fill_ratio():.3f}, kernel bytes {ks.strip_kernel_bytes(st)}; "
         f"spmv vs CSR rel err {e_spmv:.2e}; kernel vs plain f32 {e_full:.2e} f64 "
-        f"{e_full64:.2e}; Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {FEM_RTOL} "
+        f"{e_full64:.2e}; Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {SOLVE_RTOL} "
         "(iterations, true relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
         + f"; f32 PCG at rtol 1e-12 stalls at {stall:.3e}, refine (f64 over f32 PCG) "
@@ -485,7 +527,7 @@ def fem_phases(dev, g, times, launches):
 
     # 11 -----------------------------------------------------------------------
     check(torch.equal(tsm.spmv(st, x), y_st), "strip spmv rerun differs")
-    x_pcg2, info_pcg2 = solvers.cg(st, b, tol=0.0, rtol=FEM_RTOL, maxiter=2000, M=Mj)
+    x_pcg2, info_pcg2 = solvers.cg(st, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mj)
     check(torch.equal(x_pcg2, x_pcg) and torch.equal(info_pcg2.residual_norm,
                                                       info_pcg.residual_norm),
           "PCG(Jacobi) rerun differs")
@@ -509,16 +551,221 @@ def fem_phases(dev, g, times, launches):
         f"runs {[runs[0], runs[3]]}")
 
 
+def route_cases():
+    """(label, scipy matrix) for the route kernels against their plain
+    versions: the JAX package's RouteStream test matrices
+    (tests/test_route.py) and a layout with two splits."""
+    def scatter(n, dens, seed, with_zero=False):
+        m = sp.random(n, n, dens, random_state=seed, format="csr").astype(np.float32)
+        m.data = (m.data * 10 - 5).astype(np.float32)
+        m = (m + sp.eye(n, dtype=np.float32, format="csr")).tocsr()
+        if with_zero:
+            m.data[0] = 0.0                 # a stored entry whose value is zero
+        return m
+
+    rng = np.random.default_rng(5)
+    deg = np.minimum(rng.zipf(1.7, 700), 300)  # rows of more than 128 entries
+    src = np.repeat(np.arange(700), deg)
+    zipf = sp.coo_matrix((rng.standard_normal(src.size).astype(np.float32),
+                          (src, rng.integers(0, 700, src.size))), shape=(700, 700)).tocsr()
+    zipf.sum_duplicates()
+    cases = [(f"test_route n={n}", scatter(n, d, s))
+             for n, d, s in ((300, 0.01, 1), (1000, 0.004, 2), (257, 0.03, 3), (64, 0.2, 4))]
+    cases += [("zipf rows", zipf), ("stored zero", scatter(200, 0.02, 7, with_zero=True)),
+              ("rectangular 300x250", scatter(300, 0.01, 9)[:, :250].tocsr()),
+              ("empty 5x7", sp.csr_matrix((5, 7), dtype=np.float32)),
+              ("3x3", sp.csr_matrix(np.array([[1.0, 0, 2.0], [0, 0, 0], [0, 3.0, 0]],
+                                             np.float32))),
+              ("two splits", sp.random(600, 128, 0.5, format="csr", dtype=np.float32,
+                                       random_state=np.random.default_rng(0)))]
+    return cases
+
+
+def check_route_kernels(rs, x, tol, what):
+    """Each route kernel against its plain half on the same input, and the
+    SpMV against the plain SpMV; the worst relative error."""
+    n = rs.n_regions * 128          # the spare rows past the regions hold no product
+    staging = kr.route_gather(rs, x)
+    staging_ref = kr.route_gather_ref(rs, x)
+    errs = [compare("route_gather", staging[:n], staging_ref[:n], tol, f"route_gather {what}"),
+            compare("route_reduce", kr.route_reduce(rs, staging_ref),
+                    kr.route_reduce_ref(rs, staging_ref), tol, f"route_reduce {what}")]
+    y, y_ref = kr.route_spmv(rs, x), kr.route_spmv_ref(rs, x)
+    check(y.dtype == y_ref.dtype, f"{what}: dtype {y.dtype} vs {y_ref.dtype}")
+    errs.append(compare(None, y, y_ref, tol, f"route_spmv {what}"))
+    return max(errs)
+
+
+def circuit_symmetric(m):
+    """The symmetric variant of the circuit operator: off-diagonals
+    (O + Oᵀ)/2 and diagonal Σ_j≠i |a_ij| + 1 (strictly dominant, SPD)."""
+    off = (m - sp.diags(m.diagonal())).tocsr()
+    off = ((off + off.T) * 0.5).tocsr()
+    off.eliminate_zeros()
+    d = np.asarray(abs(off).sum(axis=1)).ravel() + 1.0
+    return (off + sp.diags(d.astype(np.float32))).tocsr().astype(np.float32)
+
+
+def bicgstab_iters_per_s(A, b, iters):
+    solvers.bicgstab(A, b, tol=0.0, maxiter=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info = solvers.bicgstab(A, b, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(int(info.iterations) == iters, "BiCGStab stopped early")
+    return iters / dt
+
+
+def route_phases(dev, g, times, launches):
+    """Phases 13–16: the route kernels against their plain versions, and
+    the circuit path.  Adds the route kernels' times and main-path launches
+    to ``times`` and ``launches``."""
+    # 13 -----------------------------------------------------------------------
+    worst = {}
+    for label, m in route_cases():
+        rs = tsm.CSR.from_scipy(m, device=dev).to_route()
+        check(rs.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        xs = torch.randn(m.shape[1], generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
+            errs.append(check_route_kernels(rs.astype(dt), x_dt, TOL[dt]["y"], f"{label} {dt}"))
+        worst[f"{label} (splits {rs.n_splits})"] = max(errs)
+    torch.cuda.synchronize()
+    say("13 route", "both kernels vs plain within tolerance (f32, f64, bf16 values); worst "
+        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 14 -----------------------------------------------------------------------
+    host = {}
+    t0 = time.perf_counter()
+    m = (matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr()
+    m.sort_indices()
+    host["generate"] = time.perf_counter() - t0
+    check(m.dtype == np.float32, f"the circuit operator is {m.dtype}")
+    n = m.shape[0]
+    with tempfile.TemporaryDirectory() as td:
+        mtx, npz = os.path.join(td, "circuit.mtx"), os.path.join(td, "circuit_route.npz")
+        t0 = time.perf_counter()
+        tio.save_mtx(tsm.CSR.from_scipy(m), mtx)
+        host["save_mtx"] = time.perf_counter() - t0
+        mtx_mb = os.path.getsize(mtx) / 1e6
+        kr.reset_launches()
+        t0 = time.perf_counter()
+        csr = tio.load_mtx(mtx, device=dev)
+        torch.cuda.synchronize()
+        host["load_mtx"] = time.perf_counter() - t0
+        check(tio.last_mtx_parser == "native", f"load_mtx took the {tio.last_mtx_parser} parser")
+        check(np.array_equal(csr.host("indptr"), m.indptr)
+              and np.array_equal(csr.host("indices"), m.indices)
+              and np.array_equal(csr.host("data"), m.data), "load_mtx changed the matrix")
+        t0 = time.perf_counter()
+        rs0 = csr.to_route()
+        torch.cuda.synchronize()
+        host["to_route"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save_matrix(npz, rs0)
+        host["save_matrix"] = time.perf_counter() - t0
+        npz_mb = os.path.getsize(npz) / 1e6
+        t0 = time.perf_counter()
+        rs = checkpoint.load_matrix(npz, device=dev)
+        torch.cuda.synchronize()
+        host["load_matrix"] = time.perf_counter() - t0
+    check(isinstance(rs, tsm.RouteStream) and rs.a_vals.device == csr.data.device,
+          "load_matrix did not give a RouteStream on the card")
+    x = torch.randn(n, generator=g, device=dev)
+    y = tsm.spmv(rs, x)
+    check(torch.equal(tsm.spmv(rs0, x), y), "the reloaded RouteStream's spmv differs")
+    e_csr = compare(None, y, tsm.spmv(csr, x), 1e-5, "circuit spmv route kernels vs CSR stream")
+    b = torch.randn(n, generator=g, device=dev)
+    report = {}
+
+    def solved(label, x_, info, A_csr, b_):
+        rel = true_rel(A_csr, x_, b_)
+        check(bool(info.converged), f"{label} did not converge in {int(info.iterations)}")
+        check(rel <= SOLVE_TRUE_REL, f"{label}: true relative residual {rel:.3e} > {SOLVE_TRUE_REL}")
+        report[label] = (int(info.iterations), rel)
+
+    x_bi, info_bi = solvers.bicgstab(rs, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    solved("BiCGStab", x_bi, info_bi, csr, b)
+    solved("GMRES(30)", *solvers.gmres(rs, b, tol=0.0, rtol=SOLVE_RTOL, restart=30,
+                                       maxiter=3000), csr, b)
+    solved("Jacobi", *solvers.jacobi(rs, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=5000), csr, b)
+    msym = circuit_symmetric(m)
+    csr_sym = tsm.CSR.from_scipy(msym, device=dev)
+    rs_sym = csr_sym.to_route()
+    check(float((tsm.spmv(rs_sym, x) - y).abs().max()) > 0.01, "the symmetric variant is A")
+    solved("PCG(Jacobi) symmetric",
+           *solvers.cg(rs_sym, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000,
+                       M=solvers.JacobiPreconditioner.from_matrix(csr_sym)), csr_sym, b)
+    torch.cuda.synchronize()
+    for name in kr.LAUNCHES:
+        launches[name] = kr.LAUNCHES[name]
+        check(launches[name] > 0, f"the circuit path launched {name} no time")
+
+    full = []
+    for dt in (torch.float32, torch.float64):
+        full.append(check_route_kernels(rs.astype(dt), x.to(dt), TOL[dt]["y"],
+                                        f"circuit {dt}"))
+    say("14 circuit", f"circuit_scatter·2e-2: {n} rows, {csr.n_non_zero_entries()} entries, "
+        f"longest row {int(np.diff(m.indptr).max())}; .mtx {mtx_mb:.1f} MB, checkpoint "
+        f"{npz_mb:.1f} MB; n_sup {rs.n_sup}, n_splits {rs.n_splits}, n_regions "
+        f"{rs.n_regions}, nse {rs.nse}, fill {rs.fill_ratio():.3f}, spmv_traffic_bytes "
+        f"{rs.spmv_traffic_bytes()}; spmv vs CSR rel err {e_csr:.2e}; kernels vs plain "
+        f"f32 {full[0]:.2e} f64 {full[1]:.2e}; solves to rtol {SOLVE_RTOL} (iterations, true "
+        "relative residual f64): "
+        + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
+        + f"; route launches {({k: launches[k] for k in kr.LAUNCHES})}")
+
+    # 15 -----------------------------------------------------------------------
+    check(torch.equal(tsm.spmv(rs, x), y), "route spmv rerun differs")
+    x_bi2, info_bi2 = solvers.bicgstab(rs, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    check(torch.equal(x_bi2, x_bi) and torch.equal(info_bi2.residual_norm,
+                                                   info_bi.residual_norm),
+          "BiCGStab rerun differs")
+    say("15 determinism", "route spmv and BiCGStab rerun bitwise equal")
+
+    # 16 -----------------------------------------------------------------------
+    mb = rs.spmv_traffic_bytes() / 1e6
+    staging = kr.route_gather(rs, x)
+    for name, kern, plain, arg in (("route_gather", kr.route_gather, kr.route_gather_ref, x),
+                                   ("route_reduce", kr.route_reduce, kr.route_reduce_ref,
+                                    staging)):
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(rs, arg), lambda: plain(rs, arg), 20)
+        times[name] = (k_ms, p_ms)
+        d_ms = device_us(lambda: kern(rs, arg), 20, f"{name}_kernel") / 1e3
+        say("16 times", f"{name} circuit f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
+            f"of it {d_ms:.4f} ms on the device (profiler); plain {p_ms:.4f} ms runs {p_runs}")
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kr.route_spmv(rs, x),
+                                           lambda: kr.route_spmv_ref(rs, x), 20)
+    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_") / 1e3
+    c_ms = cuda_ms(lambda: tsm.spmv(csr, x), 20)
+    nnz = csr.n_non_zero_entries()
+    say("16 times", f"route spmv circuit f32: kernels {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
+        f"GB/s of {mb:.1f} MB spmv_traffic_bytes; {nnz / k_ms / 1e6:.3f} Gnnz/s) runs "
+        f"{k_runs}, of it {d_ms:.4f} ms on the device in the two kernels ({mb / d_ms:.1f} "
+        f"GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; CSR stream path {c_ms:.4f} ms")
+    plain = lambda v: kr.route_spmv_ref(rs, v)  # noqa: E731
+    runs = [bicgstab_iters_per_s(plain, b, 32), bicgstab_iters_per_s(rs, b, 128),
+            bicgstab_iters_per_s(rs, b, 128), bicgstab_iters_per_s(plain, b, 32)]
+    say("16 times", f"BiCGStab f32 circuit: kernels {(runs[1] + runs[2]) / 2:.1f} iters/s "
+        f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
+        f"runs {[runs[0], runs[3]]}")
+    say("16 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile CG through the kernels instead of the checks")
+                    help="profile the solvers through the kernels instead of the checks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA card")
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' products in f32
+    torch.backends.cudnn.allow_tf32 = False
     if args.profile:
-        profile_cg(dev)
+        profile_solvers(dev)
         return
 
     # 1 ------------------------------------------------------------------------
@@ -666,6 +913,7 @@ def main():
             f"runs {[runs[0], runs[3]]}")
 
     fem_phases(dev, g, times, launches)
+    route_phases(dev, g, times, launches)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,30 +1,33 @@
 """sparsemat_tpu_torch — the PyTorch + CUDA port of ``sparsemat_tpu``.
 
-Ported so far: host assembly (``SparseBuilder``) → freeze to ``CSR`` →
-freeze to ``DIA`` (banded) or ``StripELL`` (bounded-span scattered, the FEM
-class) → ``spmv`` / ``spmv_dot`` / ``spmv_chain`` → the solvers (CG/PCG,
-BiCGStab, GMRES, Chebyshev, Jacobi, mixed-precision refinement) and the
-Jacobi / block-Jacobi preconditioners.  Formats are frozen dataclasses of
-tensors on an explicit device; ops and solvers are plain functions.  The
-DIA and StripELL kernels are hand-written CUDA for Hopper (``csrc/``),
-built at first use; on CPU tensors each takes its plain PyTorch version.
+Ported so far: host assembly (``SparseBuilder``) or MatrixMarket input
+(``io.load_mtx``) → freeze to ``CSR`` → freeze to ``DIA`` (banded),
+``StripELL`` (bounded-span scattered, the FEM class) or ``RouteStream``
+(globally scattered, the circuit class) → ``spmv`` / ``spmv_dot`` /
+``spmv_chain`` → the solvers (CG/PCG, BiCGStab, GMRES, Chebyshev, Jacobi,
+mixed-precision refinement) and the Jacobi / block-Jacobi preconditioners;
+checkpoints of matrices and solves in the JAX package's file format
+(``checkpoint``).  Formats are frozen dataclasses of tensors on an explicit
+device; ops and solvers are plain functions.  The DIA, StripELL and
+RouteStream kernels are hand-written CUDA for Hopper (``csrc/``), built at
+first use; on CPU tensors each takes its plain PyTorch version.
 This package imports neither jax nor ``sparsemat_tpu``.
 """
 
-from . import formats, ops, solvers, vectors
+from . import checkpoint, formats, io, ops, solvers, vectors
 from .builder import SparseBuilder
-from .formats import COO, CSR, DIA, SparseFormat, StripELL
+from .formats import COO, CSR, DIA, RouteStream, SparseFormat, StripELL
 from .ops import spmv, spmv_chain, spmv_dot
 from .solvers import GMRES, BiCGStab, ConjugateGradient, Jacobi, SolveInfo
 from .types import DEFAULT_INDEX_DTYPE
 from .vectors import DenseVec, SparseVec, inner_prod, norm, norm_squared
 
 __all__ = [
-    "COO", "CSR", "DIA", "StripELL", "SparseFormat", "SparseBuilder",
+    "COO", "CSR", "DIA", "RouteStream", "StripELL", "SparseFormat", "SparseBuilder",
     "ConjugateGradient", "Jacobi", "BiCGStab", "GMRES", "SolveInfo", "solvers",
     "spmv", "spmv_dot", "spmv_chain",
     "DenseVec", "SparseVec", "inner_prod", "norm", "norm_squared",
-    "formats", "ops", "vectors", "eye", "from_dense",
+    "checkpoint", "formats", "io", "ops", "vectors", "eye", "from_dense",
 ]
 
 

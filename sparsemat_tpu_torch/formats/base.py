@@ -77,6 +77,11 @@ class SparseFormat:
         return StripELL.from_csr(self.to_csr(), n_classes=n_classes,
                                  group=group, lidx_pack=lidx_pack)
 
+    def to_route(self):
+        from .route import RouteStream
+
+        return RouteStream.from_csr(self.to_csr())
+
     @property
     def n_rows(self) -> int:
         return self.shape[0]

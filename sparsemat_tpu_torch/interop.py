@@ -1,7 +1,7 @@
 """Carry the JAX package's frozen state into the port.
 
-``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``StripELL``
-from the JAX package's frozen arrays handed over as numpy
+``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``StripELL``/
+``RouteStream`` from the JAX package's frozen arrays handed over as numpy
 (``np.asarray(jax_csr.indptr)`` and so on), so both packages compute on the
 same matrix and the same frozen layout.  Nothing of the JAX package is
 imported.
@@ -15,11 +15,14 @@ from .formats.base import to_device
 from .formats.coo import COO
 from .formats.csr import CSR
 from .formats.dia import DIA
+from .formats.route import ARRAYS as _ROUTE_ARRAYS
+from .formats.route import RouteStream
 from .formats.strip import StripELL, StripPart
 
 _FIELDS = {"coo": ("rows", "cols", "vals"),
            "csr": ("indptr", "indices", "data", "row_ids"),
-           "dia": ("data",)}
+           "dia": ("data",),
+           "route": _ROUTE_ARRAYS}
 #: fields the port has no use for: DIA's lane-packed copy for the TPU tiling
 _IGNORED = {"dia": ("tdata",)}
 #: a StripELL part's arrays and static fields
@@ -29,10 +32,10 @@ _STRIP_STATIC = ("block_ids", "g4", "lidx_pack")
 
 def from_reference(fields: dict, *, format: str, shape, offsets=None,
                    device=None):
-    """The port's format ``format`` ('coo', 'csr', 'dia' or 'strip') from the
-    JAX package's frozen arrays ``fields`` (name → numpy array), on
+    """The port's format ``format`` ('coo', 'csr', 'dia', 'strip' or 'route')
+    from the JAX package's frozen arrays ``fields`` (name → numpy array), on
     ``device``.  A DIA needs ``offsets``; a DIA's ``tdata`` is accepted and
-    ignored.  A StripELL takes ``{"parts": [part, ...]}``, each part a dict
+    ignored.  A RouteStream takes its 17 arrays.  A StripELL takes ``{"parts": [part, ...]}``, each part a dict
     of its arrays (vals, lidx, wrel, wtile, occ) and static fields
     (block_ids, g4, lidx_pack)."""
     shape = tuple(int(s) for s in shape)
@@ -50,6 +53,8 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
     if missing or extra:
         raise ValueError(f"{format}: missing fields {missing}, unknown fields {sorted(extra)}")
     host = {f: np.asarray(fields[f]) for f in need}
+    if format == "route":
+        return RouteStream.from_host(host, shape, device=device)
     t = {f: to_device(a, None, device) for f, a in host.items()}
     if format == "coo":
         return COO(rows=t["rows"], cols=t["cols"], vals=t["vals"], shape=shape)

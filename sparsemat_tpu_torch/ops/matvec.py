@@ -1,8 +1,9 @@
 """SpMV and its fused forms (counterpart of ``sparsemat_tpu/ops/matvec.py``).
 
-Dispatch by format: DIA goes to the DIA kernels (``kernels/dia.py``) and
-StripELL to the strip kernel (``kernels/strip.py``); each launches on CUDA
-tensors and takes its plain version on CPU tensors.  CSR and COO take the
+Dispatch by format: DIA goes to the DIA kernels (``kernels/dia.py``),
+StripELL to the strip kernel (``kernels/strip.py``) and RouteStream to the
+two route kernels (``kernels/route.py``); each launches on CUDA tensors and
+takes its plain version on CPU tensors.  CSR and COO take the
 stream path: gather x by column, multiply, and reduce each row's segment in
 order.  The segmented reduction has no atomics (a scatter-add with
 ``index_add_`` would use them on CUDA), so reruns are bitwise equal.  The
@@ -16,8 +17,10 @@ import torch
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..formats.dia import DIA
+from ..formats.route import RouteStream
 from ..formats.strip import StripELL
 from ..kernels import dia as dia_kernels
+from ..kernels import route as route_kernels
 from ..kernels import strip as strip_kernels
 from ..types import accum_dtype
 
@@ -43,15 +46,18 @@ def _stream_spmv(indptr, cols, vals, x):
 # --- public dispatch ---------------------------------------------------------
 
 def spmv(mat, x, *, method: str | None = None) -> torch.Tensor:
-    """y = A @ x.  ``method``: None (by format) or 'strip' (freeze to
-    StripELL first, as the JAX package's ``method='strip'`` does)."""
+    """y = A @ x.  ``method``: None (by format), 'strip' or 'route' (freeze
+    to StripELL or RouteStream first, as the JAX package's methods do)."""
     x = torch.as_tensor(x)
     _check_dims(mat, x)
-    if method not in (None, "strip"):
+    if method not in (None, "strip", "route"):
         raise ValueError(f"spmv: method {method!r} is not ported")
     if isinstance(mat, StripELL) or method == "strip":
         st = mat if isinstance(mat, StripELL) else mat.to_strip()
         return strip_kernels.strip_spmv(st, x)
+    if isinstance(mat, RouteStream) or method == "route":
+        rs = mat if isinstance(mat, RouteStream) else mat.to_route()
+        return route_kernels.route_spmv(rs, x)
     if isinstance(mat, DIA):
         return dia_kernels.dia_spmv(mat, x)
     if isinstance(mat, CSR):
@@ -65,7 +71,8 @@ def spmv(mat, x, *, method: str | None = None) -> torch.Tensor:
 def spmv_dot(mat, x):
     """(A @ x, x·(A @ x)) — CG's A·p and pᵀAp.  A square DIA fuses the dot
     into the SpMV kernel (one pass over the matrix); other formats (StripELL
-    included, as in the JAX package) compose spmv and a sum."""
+    and RouteStream included, as in the JAX package) compose spmv and a
+    sum."""
     x = torch.as_tensor(x)
     _check_dims(mat, x, "spmv_dot")
     if isinstance(mat, DIA) and mat.shape[0] == mat.shape[1]:
