@@ -2,7 +2,7 @@
 
 Run from the repo root with no arguments:  python3 chip_smoke.py
 
-Three paths of the JAX package run here.  The banded path: SparseBuilder
+Four paths of the JAX package run here.  The banded path: SparseBuilder
 assembly → CSR → DIA → spmv / spmv_dot / spmv_chain → solvers.cg, on the
 2-D 5-point Poisson operator at 2048² = 4,194,304 rows (the reference
 benchmark's cg_f32_4M).  The FEM path: SparseBuilder assembly → CSR →
@@ -13,7 +13,11 @@ path: io.save_mtx → io.load_mtx → CSR → RouteStream → checkpoint.save_ma
 / load_matrix → spmv through the two route kernels → BiCGStab, GMRES(30),
 Jacobi and PCG(Jacobi), on the scircuit-class surrogate
 ``matgen.circuit_scatter() * 2e-2`` at its full 170,998 rows (the reference
-benchmark's config 4a).
+benchmark's config 4a).  The SpMM path: the pwtk-class operator
+``matgen.fem_block_band() * 2e-2`` at its full 217,920 rows (the reference
+benchmark's fem SpMV/SpMM configs) → CSR → BSR.from_csr_device (512×128
+blocks) → spmm at m = 128 through the BSR kernel, and → SlabPack / SlabELL
+→ spmv and spmm through the slab kernels.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
@@ -64,6 +68,30 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 (profiler), GB/s of RouteStream.spmv_traffic_bytes, BiCGStab
                 iterations/s through the kernels and the plain version, and
                 the host seconds of the path's steps
+ 17 bsr         the BSR SpMM kernel against its plain version, f32, f64 and
+                bf16 blocks: the JAX package's test shapes (64×256 m = 64,
+                100×300 m = 129), empty block rows, blocks 8/16/512 ×
+                128/256, a stored zero, m = 0, nnz = 0; from_csr_device
+                against the host freeze
+ 18 slab        the slab SpMV and SpMM kernels against their plain versions,
+                f32, f64 and bf16 values, m = 1, 5, 8, 20, 129: SlabELL at
+                rb 128 and 256, SlabPack with and without spill (an
+                overflow pack), a rectangular matrix, an empty one, a stored
+                zero
+ 19 fem spmm    the SpMM path at full size: BSR.from_csr_device(512×128) →
+                spmm (Y[:256, :8] against scipy, as the reference benchmark
+                checks), to_slab_pack and to_slab → spmv and spmm, each
+                kernel against its plain version, against the strip kernel,
+                the CSR stream path and the CSR spmm branch; a SlabPack
+                checkpoint reloaded to the card; the bsr_spmm, slab_spmv and
+                slab_spmm launch counters must be > 0; BSR spmm, SlabPack
+                spmv and spmm rerun bitwise
+ 20 times       each new kernel against its plain version (CUDA events per
+                call, wrapper included) and its device time (profiler): BSR
+                SpMM in Tflop/s of the stored blocks and of 2·nnz·m,
+                SlabPack SpMV in GB/s of spmv_traffic_bytes beside the strip
+                and SlabELL SpMV, SlabPack SpMM per call; the host seconds of
+                the freezes
 Then a JSON line of the kernels and, last, the device JSON line.
 
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
@@ -98,6 +126,8 @@ from sparsemat_tpu_torch import checkpoint, matgen, solvers
 from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch.kernels import dia as kd
 from sparsemat_tpu_torch.kernels import route as kr
+from sparsemat_tpu_torch.kernels import slab as ksl
+from sparsemat_tpu_torch.kernels import spmm as ksp
 from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.native import get_lib
 
@@ -111,7 +141,13 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "route_gather": ("sparsemat_tpu_torch/csrc/route.cu",
                             "sparsemat_tpu/kernels/route.py:102"),
            "route_reduce": ("sparsemat_tpu_torch/csrc/route.cu",
-                            "sparsemat_tpu/kernels/route.py:198")}
+                            "sparsemat_tpu/kernels/route.py:198"),
+           "bsr_spmm": ("sparsemat_tpu_torch/csrc/bsr.cu",
+                        "sparsemat_tpu/kernels/spmm.py:72"),
+           "slab_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
+                         "sparsemat_tpu/kernels/spmv.py:165"),
+           "slab_spmm": ("sparsemat_tpu_torch/csrc/slab.cu",
+                         "sparsemat_tpu/kernels/spmm.py:204")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
@@ -247,7 +283,8 @@ def build_all():
         return out, time.perf_counter() - t0
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
-            "csrc/route.cu": kr._kernels, "C++ assembly store": get_lib}
+            "csrc/route.cu": kr._kernels, "csrc/bsr.cu": ksp._kernels,
+            "csrc/slab.cu": ksl._kernels, "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         results = {name: f.result() for name, f in futs.items()}
@@ -331,21 +368,32 @@ def true_rel(csr, x, b):
     return r / bn
 
 
-def device_us(fn, iters, key):
+def device_us(fn, iters, key, launched):
     """Device µs per call of the kernels whose name holds ``key``, from a
-    torch.profiler trace of ``iters`` calls of ``fn``."""
+    torch.profiler trace of ``iters`` calls of ``fn``: the mean time per
+    recorded launch times the launches per call, which ``launched`` (the
+    wrappers' launch count) gives.  The profiler can drop the records of
+    long kernels late in a process (two of five 10 ms launches recorded
+    in one run), so a shortfall is printed and not taken as zero time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = launched()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
-    check(us > 0, f"the profiler recorded no device time for {key}")
-    return us / iters
+    made = launched() - before
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+    us = sum(e.self_device_time_total for e in rows)
+    recorded = sum(e.count for e in rows)
+    check(us > 0 and recorded > 0, f"the profiler recorded no device time for {key}")
+    if recorded != made:
+        say("profile", f"{key}: the profiler recorded {recorded} of {made} launches; "
+            "device time per call is the mean per recorded launch")
+    return us / recorded * made / iters
 
 
 def profile_solvers(dev, iters=64):
@@ -538,7 +586,8 @@ def fem_phases(dev, g, times, launches):
                                            lambda: ks.strip_spmv_ref(st, x), 20)
     times["strip_spmv"] = (k_ms, p_ms)
     kb = ks.strip_kernel_bytes(st) / 1e6
-    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "strip_spmv_kernel") / 1e3
+    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "strip_spmv_kernel",
+                     lambda: ks.LAUNCHES["strip_spmv"]) / 1e3
     say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call ({kb / k_ms:.1f} "
         f"GB/s of {kb:.1f} MB kernel bytes; {csr.n_non_zero_entries() / k_ms / 1e6:.3f} "
         f"Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device ({kb / d_ms:.1f} GB/s, "
@@ -733,12 +782,14 @@ def route_phases(dev, g, times, launches):
                                     staging)):
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(rs, arg), lambda: plain(rs, arg), 20)
         times[name] = (k_ms, p_ms)
-        d_ms = device_us(lambda: kern(rs, arg), 20, f"{name}_kernel") / 1e3
+        d_ms = device_us(lambda: kern(rs, arg), 20, f"{name}_kernel",
+                         lambda: kr.LAUNCHES[name]) / 1e3
         say("16 times", f"{name} circuit f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
             f"of it {d_ms:.4f} ms on the device (profiler); plain {p_ms:.4f} ms runs {p_runs}")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kr.route_spmv(rs, x),
                                            lambda: kr.route_spmv_ref(rs, x), 20)
-    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_") / 1e3
+    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_",
+                     lambda: sum(kr.LAUNCHES.values())) / 1e3
     c_ms = cuda_ms(lambda: tsm.spmv(csr, x), 20)
     nnz = csr.n_non_zero_entries()
     say("16 times", f"route spmv circuit f32: kernels {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
@@ -752,6 +803,293 @@ def route_phases(dev, g, times, launches):
         f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
         f"runs {[runs[0], runs[3]]}")
     say("16 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+
+def blocky(n_rows, n_cols, density, seed, block=(8, 128)):
+    """The JAX package's BSR test matrices (tests/test_bsr_spmm.py): whole
+    (br × bc) blocks switched on at ``density``."""
+    rng = np.random.default_rng(seed)
+    br, bc = block
+    mask = rng.random((-(-n_rows // br), -(-n_cols // bc))) < density
+    dense = np.zeros((mask.shape[0] * br, mask.shape[1] * bc), np.float32)
+    for i, j in zip(*np.nonzero(mask)):
+        dense[i * br:(i + 1) * br, j * bc:(j + 1) * bc] = rng.standard_normal((br, bc))
+    return sp.csr_matrix(dense[:n_rows, :n_cols])
+
+
+def sprinkled(n_rows, n_cols, density, seed, empty_rows=None, zeros=()):
+    """Random entries at ``density``; rows ``empty_rows`` (a slice) cleared
+    and the stored entries at ``zeros`` set to the value zero."""
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n_rows, n_cols)).astype(np.float32)
+    dense[rng.random((n_rows, n_cols)) >= density] = 0
+    if empty_rows is not None:
+        dense[empty_rows] = 0
+    m = sp.csr_matrix(dense)
+    m.data[list(zeros)] = 0.0
+    return m
+
+
+def bsr_cases():
+    """(label, scipy matrix, (br, bc), m) for the BSR kernel against its
+    plain version: tests/test_bsr_spmm.py's shapes, empty block rows, the
+    block shapes 8/16/512 × 128/256, m = 0 and nnz = 0."""
+    holes = sprinkled(300, 520, 0.03, 11, empty_rows=slice(40, 120))
+    return [("64x256 m=64", blocky(64, 256, 0.15, 4), (8, 128), 64),
+            ("100x300 m=129", blocky(100, 300, 0.15, 4), (8, 128), 129),
+            ("empty block rows 8x128", holes, (8, 128), 17),
+            ("empty block rows 16x256", holes, (16, 256), 17),
+            ("empty block rows 512x128", holes, (512, 128), 130),
+            ("stored zero 64x128 m=1", sprinkled(72, 150, 0.1, 2, zeros=(0, 5)), (64, 128), 1),
+            ("m=0", blocky(64, 256, 0.15, 4), (8, 128), 0),
+            ("nnz=0", sp.csr_matrix((64, 64), dtype=np.float32), (8, 128), 8)]
+
+
+def scattered_band(n, k, band, seed):
+    """The JAX package's SlabELL test matrices (tests/test_slab.py)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k)
+    cols = np.clip(rows + rng.integers(-band, band + 1, size=n * k), 0, n - 1)
+    m = sp.csr_matrix((rng.standard_normal(n * k).astype(np.float32), (rows, cols)),
+                      shape=(n, n))
+    m.sum_duplicates()
+    return m
+
+
+def mixed_degree(n, seed):
+    """Interleaved light and heavy rows (tests/test_gell_pack.py): the
+    SlabPack spills, so it has an overflow pack."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), np.where(np.arange(n) % 7, 3, 60))
+    cols = np.clip(rows + rng.integers(-300, 301, rows.size), 0, n - 1)
+    m = sp.coo_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n)).tocsr()
+    m.sum_duplicates()
+    return m.astype(np.float32)
+
+
+def slab_cases():
+    """(label, scipy matrix, freeze) for the slab kernels against their
+    plain versions: SlabELL at rb 128 and 256, SlabPack with and without
+    spill, a rectangular matrix, an empty one and a stored zero."""
+    zero = scattered_band(300, 9, 50, 8)
+    zero.data[[0, 11]] = 0.0
+    fem = (sp.random(700, 700, 0.02, random_state=3, format="csr").astype(np.float32)
+           + sp.eye(700, dtype=np.float32, format="csr")).tocsr()
+    rect = sp.random(300, 900, 0.02, format="csr", dtype=np.float32,
+                     random_state=np.random.default_rng(4))
+    mixed = mixed_degree(2000, 0)
+    slab = lambda rb: (lambda c: c.to_slab(rb=rb))  # noqa: E731
+    pack = lambda **kw: (lambda c: tsm.SlabPack.from_csr(c, **kw))  # noqa: E731
+    return [("slab 400 rb=128", scattered_band(400, 9, 50, 3), slab(128)),
+            ("slab 260 k=140 rb=256", scattered_band(260, 140, 20, 3), slab(256)),
+            ("slab 300 band 200 rb=128", scattered_band(300, 5, 200, 3), slab(128)),
+            ("slab rectangular 300x900", rect, slab(256)),
+            ("slab stored zero", zero, slab(128)),
+            ("slab empty", sp.csr_matrix((300, 200), dtype=np.float32), slab(256)),
+            ("pack spill 0.02", mixed, pack(n_classes=6, spill_frac=0.02)),
+            ("pack no spill", mixed, pack(n_classes=6, spill_frac=0.0)),
+            ("pack fem 700 rb=128", fem, pack(rb=128, n_classes=3)),
+            ("pack rectangular 300x900", rect, pack()),
+            ("pack empty", sp.csr_matrix((300, 200), dtype=np.float32), pack())]
+
+
+def slab_ops(mat):
+    """(spmv, spmv plain, spmm, spmm plain) of a SlabELL or SlabPack."""
+    if isinstance(mat, tsm.SlabPack):
+        return (ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref, ksl.slab_pack_spmm,
+                ksl.slab_pack_spmm_ref)
+    return ksl.slab_spmv, ksl.slab_spmv_ref, ksl.slab_spmm, ksl.slab_spmm_ref
+
+
+def spmm_phases(dev, g, times, launches):
+    """Phases 17–20: the BSR and slab kernels against their plain versions,
+    and the FEM SpMM path at full size.  Adds the three kernels' times and
+    main-path launches to ``times`` and ``launches``."""
+    # 17 -----------------------------------------------------------------------
+    worst = {}
+    for label, m, (br, bc), m_rhs in bsr_cases():
+        bsr = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=dev), br=br, bc=bc)
+        check(bsr.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        Bs = torch.randn(m.shape[1], m_rhs, generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            b_dt = bsr.astype(dt)
+            B_dt = Bs.to(torch.float32 if dt == torch.bfloat16 else dt)
+            Y, Y_ref = ksp.bsr_spmm(b_dt, B_dt), ksp.bsr_spmm_ref(b_dt, B_dt)
+            check(Y.dtype == Y_ref.dtype, f"{label}: dtype {Y.dtype} vs {Y_ref.dtype}")
+            errs.append(compare("bsr_spmm", Y, Y_ref, TOL[dt]["y"], f"bsr {label} {dt}"))
+        worst[label] = max(errs)
+    holes = sprinkled(300, 520, 0.03, 11, empty_rows=slice(40, 120))
+    csr_h = tsm.CSR.from_scipy(holes, device=dev)
+    Bh = torch.randn(520, 33, generator=g, device=dev)
+    for br in (8, 64, 256):
+        host, devf = tsm.BSR.from_csr(csr_h, br=br), tsm.BSR.from_csr_device(csr_h, br=br)
+        check(torch.equal(host.blocks, devf.blocks)
+              and torch.equal(host.block_rows, devf.block_rows)
+              and torch.equal(host.block_cols, devf.block_cols) and devf.occ is None,
+              f"from_csr_device br={br} differs from the host freeze")
+        check(torch.equal(ksp.bsr_spmm(host, Bh), ksp.bsr_spmm(devf, Bh)),
+              f"bsr_spmm of the device freeze br={br} differs")
+    torch.cuda.synchronize()
+    say("17 bsr", "kernel vs plain within tolerance (f32, f64, bf16 blocks); from_csr_device "
+        "equals the host freeze (br 8, 64, 256); worst rel err per case: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 18 -----------------------------------------------------------------------
+    worst = {}
+    for label, m, freeze in slab_cases():
+        mat = freeze(tsm.CSR.from_scipy(m, device=dev))
+        check(mat.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        xs = torch.randn(m.shape[1], generator=g, device=dev)
+        Bs = torch.randn(m.shape[1], 129, generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            m_dt = mat.astype(dt)
+            a_dt = torch.float32 if dt == torch.bfloat16 else dt
+            spmv, spmv_ref, spmm, spmm_ref = slab_ops(m_dt)
+            y, y_ref = spmv(m_dt, xs.to(a_dt)), spmv_ref(m_dt, xs.to(a_dt))
+            check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
+            errs.append(compare("slab_spmv", y, y_ref, TOL[dt]["y"], f"{label} spmv {dt}"))
+            for m_rhs in (1, 5, 8, 20, 129):
+                B = Bs[:, :m_rhs].to(a_dt)
+                errs.append(compare("slab_spmm", spmm(m_dt, B), spmm_ref(m_dt, B),
+                                    TOL[dt]["y"], f"{label} spmm m={m_rhs} {dt}"))
+        over = getattr(mat, "overflow", None)
+        worst[label + (" (overflow)" if over is not None else "")] = max(errs)
+    torch.cuda.synchronize()
+    say("18 slab", "spmv and spmm kernels vs plain within tolerance (f32, f64, bf16 values; "
+        "m = 1, 5, 8, 20, 129); worst rel err per case: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 19 -----------------------------------------------------------------------
+    host = {}
+    fem = (matgen.fem_block_band(seed=SEED) * np.float32(2e-2)).astype(np.float32).tocsr()
+    fem.sort_indices()
+    n, nnz, m_rhs = fem.shape[0], fem.nnz, 128
+    rng = np.random.default_rng(3)
+    B_host = (rng.standard_normal((n, m_rhs)) * 0.01).astype(np.float32)
+    ref_y = fem[:256] @ B_host[:, :8]
+    csr = tsm.CSR.from_scipy(fem, device=dev)
+    B = torch.from_numpy(B_host).to(dev)
+    x = torch.randn(n, generator=g, device=dev)
+    torch.cuda.synchronize()
+    ksp.reset_launches()
+    ksl.reset_launches()
+    t0 = time.perf_counter()
+    bsr = tsm.BSR.from_csr_device(csr, br=512, bc=128)
+    torch.cuda.synchronize()
+    host["from_csr_device"] = time.perf_counter() - t0
+    Y_bsr = tsm.spmm(bsr, B)
+    t0 = time.perf_counter()
+    pk = csr.to_slab_pack()
+    torch.cuda.synchronize()
+    host["to_slab_pack"] = time.perf_counter() - t0
+    y_pk = tsm.spmv(pk, x)
+    Y_pk = tsm.spmm(pk, B)
+    t0 = time.perf_counter()
+    sl = csr.to_slab()
+    torch.cuda.synchronize()
+    host["to_slab"] = time.perf_counter() - t0
+    y_sl = tsm.spmv(sl, x)
+    Y_sl = tsm.spmm(sl, B)
+    with tempfile.TemporaryDirectory() as td:
+        npz = os.path.join(td, "fem_slab_pack.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_matrix(npz, pk)
+        host["save_matrix"] = time.perf_counter() - t0
+        npz_mb = os.path.getsize(npz) / 1e6
+        t0 = time.perf_counter()
+        pk2 = checkpoint.load_matrix(npz, device=dev)
+        torch.cuda.synchronize()
+        host["load_matrix"] = time.perf_counter() - t0
+    check(isinstance(pk2, tsm.SlabPack) and pk2.block_ids == pk.block_ids,
+          "load_matrix did not give the SlabPack back")
+    check(torch.equal(tsm.spmv(pk2, x), y_pk), "the reloaded SlabPack's spmv differs")
+    torch.cuda.synchronize()
+    for name in ("bsr_spmm", "slab_spmv", "slab_spmm"):
+        launches[name] = {**ksp.LAUNCHES, **ksl.LAUNCHES}[name]
+        check(launches[name] > 0, f"the FEM SpMM path launched {name} no time")
+
+    spot = compare(None, Y_bsr[:256, :8].cpu(), torch.from_numpy(ref_y), 1e-3,
+                   "fem spmm BSR Y[:256, :8] vs scipy")
+    Y_stream = tsm.spmm(csr, B)              # the CSR branch: ELL or column-tiled stream
+    y_csr = tsm.spmv(csr, x)
+    y_strip = tsm.spmv(csr.to_strip(), x)
+    errs = {"BSR kernel vs plain": compare("bsr_spmm", Y_bsr, ksp.bsr_spmm_ref(bsr, B), 1e-5,
+                                           "fem bsr kernel vs plain"),
+            "BSR vs CSR spmm": compare(None, Y_bsr, Y_stream, 1e-5, "fem spmm BSR vs CSR"),
+            "pack spmv kernel vs plain": compare("slab_spmv", y_pk,
+                                                 ksl.slab_pack_spmv_ref(pk, x), 1e-5,
+                                                 "fem pack spmv kernel vs plain"),
+            "pack spmv vs strip": compare(None, y_pk, y_strip, 1e-5, "fem pack vs strip spmv"),
+            "pack spmv vs CSR": compare(None, y_pk, y_csr, 1e-5, "fem pack vs CSR spmv"),
+            "pack spmm kernel vs plain": compare("slab_spmm", Y_pk,
+                                                 ksl.slab_pack_spmm_ref(pk, B), 1e-5,
+                                                 "fem pack spmm kernel vs plain"),
+            "pack spmm vs BSR": compare(None, Y_pk, Y_bsr, 1e-5, "fem pack vs BSR spmm"),
+            "pack spmm vs CSR": compare(None, Y_pk, Y_stream, 1e-5, "fem pack vs CSR spmm"),
+            "slab spmv kernel vs plain": compare("slab_spmv", y_sl, ksl.slab_spmv_ref(sl, x),
+                                                 1e-5, "fem slab spmv kernel vs plain"),
+            "slab spmv vs CSR": compare(None, y_sl, y_csr, 1e-5, "fem slab vs CSR spmv"),
+            "slab spmm kernel vs plain": compare("slab_spmm", Y_sl, ksl.slab_spmm_ref(sl, B),
+                                                 1e-5, "fem slab spmm kernel vs plain"),
+            "slab spmm vs BSR": compare(None, Y_sl, Y_bsr, 1e-5, "fem slab vs BSR spmm")}
+    check(torch.equal(tsm.spmm(bsr, B), Y_bsr), "BSR spmm rerun differs")
+    check(torch.equal(tsm.spmv(pk, x), y_pk), "SlabPack spmv rerun differs")
+    check(torch.equal(tsm.spmm(pk, B), Y_pk), "SlabPack spmm rerun differs")
+    parts = [p.c_total for p in pk.parts]
+    say("19 fem spmm", f"fem_block_band·2e-2: {n} rows, {nnz} entries, longest row "
+        f"{int(np.diff(fem.indptr).max())}; BSR 512x128: {bsr.n_tiles} tiles, "
+        f"{bsr.blocks.numel() * 4 / 1e9:.3f} GB, fill {bsr.fill_ratio():.4f}; SlabPack: "
+        f"{len(pk.parts)} parts, c_total {min(parts)}–{max(parts)}, overflow "
+        f"{len(pk.overflow.parts) if pk.overflow is not None else 0} parts at rb "
+        f"{pk.overflow.row_block if pk.overflow is not None else '-'}, nse {pk.nse}, "
+        f"spmv_traffic_bytes {pk.spmv_traffic_bytes()}; SlabELL: c_total {sl.c_total}, "
+        f"{sl.slab_windows} windows, nse {sl.nse}; checkpoint {npz_mb:.1f} MB; Y[:256, :8] "
+        f"vs scipy {spot:.2e}; rel errs: " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; reruns bitwise equal; launches {({k: launches[k] for k in ('bsr_spmm', 'slab_spmv', 'slab_spmm')})}")
+
+    # 20 -----------------------------------------------------------------------
+    del Y_stream, Y_sl
+    stored = ksp.bsr_spmm_flops(bsr, m_rhs)
+    useful = 2 * nnz * m_rhs
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksp.bsr_spmm(bsr, B),
+                                           lambda: ksp.bsr_spmm_ref(bsr, B), 5)
+    times["bsr_spmm"] = (k_ms, p_ms)
+    d_ms = device_us(lambda: ksp.bsr_spmm(bsr, B), 5, "bsr_spmm_kernel",
+                     lambda: ksp.LAUNCHES["bsr_spmm"]) / 1e3
+    say("20 times", f"bsr spmm fem 512x128 m=128 f32: kernel {k_ms:.4f} ms per call runs "
+        f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler): {stored / d_ms / 1e9:.3f} "
+        f"Tflop/s of the stored blocks, {useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain "
+        f"{p_ms:.4f} ms runs {p_runs} ({stored / p_ms / 1e9:.3f} and "
+        f"{useful / p_ms / 1e9:.4f} Tflop/s)")
+    del bsr, Y_bsr
+    mb = pk.spmv_traffic_bytes() / 1e6
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmv(pk, x),
+                                           lambda: ksl.slab_pack_spmv_ref(pk, x), 20)
+    times["slab_spmv"] = (k_ms, p_ms)
+    d_ms = device_us(lambda: ksl.slab_pack_spmv(pk, x), 20, "slab_spmv_kernel",
+                     lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
+    st = csr.to_strip()
+    s_ms = cuda_ms(lambda: ks.strip_spmv(st, x), 20)
+    say("20 times", f"SlabPack spmv fem f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
+        f"GB/s of {mb:.1f} MB spmv_traffic_bytes) runs {k_runs}, of it {d_ms:.4f} ms on the "
+        f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; "
+        f"StripELL kernel on the same operator {s_ms:.4f} ms")
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_spmv(sl, x),
+                                           lambda: ksl.slab_spmv_ref(sl, x), 20)
+    m_ms = cuda_ms(lambda: ksl.slab_spmm(sl, B), 3)
+    say("20 times", f"SlabELL fem f32: spmv kernel {k_ms:.4f} ms per call runs {k_runs}, "
+        f"plain {p_ms:.4f} ms runs {p_runs}; spmm m=128 kernel {m_ms:.4f} ms per call")
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmm(pk, B),
+                                           lambda: ksl.slab_pack_spmm_ref(pk, B), 3)
+    times["slab_spmm"] = (k_ms, p_ms)
+    d_ms = device_us(lambda: ksl.slab_pack_spmm(pk, B), 3, "slab_spmm_kernel",
+                     lambda: ksl.LAUNCHES["slab_spmm"]) / 1e3
+    say("20 times", f"SlabPack spmm fem m=128 f32: kernel {k_ms:.4f} ms per call runs "
+        f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler), "
+        f"{useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain {p_ms:.4f} ms runs {p_runs}")
+    say("20 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
 
 def main():
@@ -914,6 +1252,7 @@ def main():
 
     fem_phases(dev, g, times, launches)
     route_phases(dev, g, times, launches)
+    spmm_phases(dev, g, times, launches)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

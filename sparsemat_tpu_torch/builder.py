@@ -348,6 +348,10 @@ class SparseBuilder:
                                  dtype=self.dtype, index_dtype=self.index_dtype,
                                  sum_duplicates=False, device=device)
 
+    def to_ell(self, n_cols_per_row: int | None = None, *, device=None):
+        """Freeze to ELL on ``device`` (through CSR)."""
+        return self.to_csr(device=device).to_ell(n_cols_per_row=n_cols_per_row)
+
     def freeze(self, format: str = "csr", device=None):
         return getattr(self, f"to_{format}")(device=device)
 

@@ -11,10 +11,13 @@ saves.
   "none"}``.  Tensors are the array fields; ints, bools and tuples of ints
   (shape, offsets, block ids) are static.  The version-1 flat layout (one
   header with ``format`` and ``static``, arrays under their field names) is
-  read too.  The port's formats are COO, CSR, DIA, StripELL (with its
-  StripPart) and RouteStream; a file holding another format raises
-  ``ValueError``.  A DIA from the JAX package carries ``tdata`` (its TPU
-  lane-packed copy): it is read and dropped, and the port writes it as
+  read too.  The port's formats are COO, CSR, DIA, ELL, BSR, StripELL
+  (with its StripPart), RouteStream, SlabELL and SlabPack (its parts and
+  overflow nested); a file holding another format raises ``ValueError``.
+  An absent optional field (BSR ``occ``, SlabELL ``bucket_cnt``, SlabPack
+  ``overflow``) is written as ``none``.  A DIA from the JAX package carries
+  ``tdata`` (its TPU lane-packed copy) and a BSR ``chunks`` (its TPU call
+  ranges): each is read and dropped, and the port writes ``tdata`` as
   ``none``.
 * ``save_solve_state`` / ``load_solve_state`` / ``resume``: (x, iterations,
   residual norm); a resumed solve is a fresh solve from the checkpointed
@@ -31,15 +34,20 @@ import numpy as np
 import torch
 
 from .formats.base import SparseFormat, to_device
+from .formats.bsr import BSR
 from .formats.coo import COO
 from .formats.csr import CSR
 from .formats.dia import DIA
+from .formats.ell import ELL
 from .formats.route import RouteStream
+from .formats.slab import SlabELL, SlabPack
 from .formats.strip import StripELL, StripPart
 
-_FORMATS = {cls.__name__: cls for cls in (COO, CSR, DIA, StripELL, StripPart, RouteStream)}
-#: fields the JAX package writes and the port has no use for
-_DROPPED = {"DIA": ("tdata",)}
+_FORMATS = {cls.__name__: cls for cls in (COO, CSR, DIA, ELL, BSR, StripELL, StripPart,
+                                          RouteStream, SlabELL, SlabPack)}
+#: fields (array or static) the JAX package writes and the port has no use
+#: for: DIA's lane-packed copy and BSR's TPU call chunks
+_DROPPED = {"DIA": ("tdata",), "BSR": ("chunks",)}
 
 
 def _format_class(name: str):
@@ -58,9 +66,10 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
 
 
 def _is_field(v) -> bool:
-    """Whether a dataclass value is an array field (tensor, format, or a
-    tuple of them) rather than static metadata."""
-    if isinstance(v, (torch.Tensor, SparseFormat)):
+    """Whether a dataclass value is an array field (tensor, format, a tuple
+    of them, or an absent optional one: BSR's ``occ``, SlabELL's
+    ``bucket_cnt``, SlabPack's ``overflow``) rather than static metadata."""
+    if v is None or isinstance(v, (torch.Tensor, SparseFormat)):
         return True
     return isinstance(v, (tuple, list)) and any(_is_field(e) for e in v)
 
@@ -118,10 +127,11 @@ def _unflatten_field(node, z, device, host: dict, name: str):
 def _unflatten_format(desc: dict, z, device):
     name = desc["format"]
     cls = _format_class(name)
-    kwargs = {k: _untuple(v) for k, v in desc["static"].items()}
+    dropped = _DROPPED.get(name, ())
+    kwargs = {k: _untuple(v) for k, v in desc["static"].items() if k not in dropped}
     host = {}
     for fname, node in desc["fields"].items():
-        if fname in _DROPPED.get(name, ()):
+        if fname in dropped:
             continue
         kwargs[fname] = _unflatten_field(node, z, device, host, fname)
     return _build(cls, kwargs, host)

@@ -82,6 +82,20 @@ class SparseFormat:
 
         return RouteStream.from_csr(self.to_csr())
 
+    def to_ell(self, n_cols_per_row: int | None = None):
+        return self.to_csr().to_ell(n_cols_per_row=n_cols_per_row)
+
+    def to_slab(self, rb: int | None = None):
+        from .slab import SLAB_ROW_BLOCK, SlabELL
+
+        return SlabELL.from_csr(self.to_csr(), rb=rb or SLAB_ROW_BLOCK)
+
+    def to_slab_pack(self, rb: int | None = None, n_classes: int = 8):
+        from .slab import SLAB_ROW_BLOCK, SlabPack
+
+        return SlabPack.from_csr(self.to_csr(), rb=rb or SLAB_ROW_BLOCK,
+                                 n_classes=n_classes)
+
     @property
     def n_rows(self) -> int:
         return self.shape[0]
@@ -104,13 +118,16 @@ class SparseFormat:
 
     # -- algebra ----------------------------------------------------------------
     def __matmul__(self, other):
-        from ..ops import spmv
+        from ..ops import spmm, spmv
 
+        if isinstance(other, SparseFormat):
+            raise NotImplementedError("sparse @ sparse (spgemm) is not ported yet")
         other = torch.as_tensor(other)
-        if other.dim() != 1:
-            raise ValueError(
-                f"only sparse @ vector is ported; got an operand of rank {other.dim()}")
-        return spmv(self, other)
+        if other.dim() == 1:
+            return spmv(self, other)
+        if other.dim() == 2:
+            return spmm(self, other)
+        raise ValueError(f"cannot multiply sparse matrix by array of rank {other.dim()}")
 
     def mvp(self, x):
         """SpMV — name kept from the reference library."""

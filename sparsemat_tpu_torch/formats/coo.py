@@ -71,6 +71,11 @@ class COO(SparseFormat):
 
         return CSR.from_coo(self)
 
+    def to_ell(self, n_cols_per_row: int | None = None):
+        from .ell import ELL
+
+        return ELL.from_coo(self, n_cols_per_row=n_cols_per_row)
+
     def sort(self) -> "COO":
         """Canonicalize: sort row-major/column-sorted and sum duplicates."""
         if self.canonical:

@@ -150,6 +150,11 @@ class CSR(SparseFormat):
         return COO(rows=self.row_ids, cols=self.indices, vals=self.data,
                    shape=self.shape, canonical=True)
 
+    def to_ell(self, n_cols_per_row: int | None = None):
+        from .ell import ELL
+
+        return ELL.from_csr(self, n_cols_per_row=n_cols_per_row)
+
     # -- structure ----------------------------------------------------------------
     @property
     def nse(self) -> int:

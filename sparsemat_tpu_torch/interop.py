@@ -1,7 +1,8 @@
 """Carry the JAX package's frozen state into the port.
 
-``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``StripELL``/
-``RouteStream`` from the JAX package's frozen arrays handed over as numpy
+``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``ELL``/``BSR``/
+``StripELL``/``RouteStream``/``SlabELL``/``SlabPack`` from the JAX
+package's frozen arrays handed over as numpy
 (``np.asarray(jax_csr.indptr)`` and so on), so both packages compute on the
 same matrix and the same frozen layout.  Nothing of the JAX package is
 imported.
@@ -12,47 +13,67 @@ from __future__ import annotations
 import numpy as np
 
 from .formats.base import to_device
+from .formats.bsr import BSR
 from .formats.coo import COO
 from .formats.csr import CSR
 from .formats.dia import DIA
+from .formats.ell import ELL
 from .formats.route import ARRAYS as _ROUTE_ARRAYS
 from .formats.route import RouteStream
+from .formats.slab import SlabELL, SlabPack
 from .formats.strip import StripELL, StripPart
 
 _FIELDS = {"coo": ("rows", "cols", "vals"),
            "csr": ("indptr", "indices", "data", "row_ids"),
            "dia": ("data",),
+           "ell": ("cols", "vals", "row_nnz"),
+           "bsr": ("blocks", "block_rows", "block_cols", "occ"),
            "route": _ROUTE_ARRAYS}
-#: fields the port has no use for: DIA's lane-packed copy for the TPU tiling
-_IGNORED = {"dia": ("tdata",)}
+#: fields the port has no use for: DIA's lane-packed copy for the TPU
+#: tiling, BSR's TPU call chunks
+_IGNORED = {"dia": ("tdata",), "bsr": ("chunks",)}
+#: fields that may be None (absent)
+_OPTIONAL = {"bsr": ("occ",)}
 #: a StripELL part's arrays and static fields
 _STRIP_ARRAYS = ("vals", "lidx", "wrel", "wtile", "occ")
 _STRIP_STATIC = ("block_ids", "g4", "lidx_pack")
+#: a SlabELL's arrays (``bucket_cnt`` may be None) and static field
+_SLAB_ARRAYS = ("vals", "lidx", "win_lo", "bucket_cnt")
+_SLAB_STATIC = ("buckets",)
+#: a SlabPack's fields
+_PACK_FIELDS = ("parts", "block_ids", "row_block", "overflow")
 
 
 def from_reference(fields: dict, *, format: str, shape, offsets=None,
                    device=None):
-    """The port's format ``format`` ('coo', 'csr', 'dia', 'strip' or 'route')
-    from the JAX package's frozen arrays ``fields`` (name → numpy array), on
-    ``device``.  A DIA needs ``offsets``; a DIA's ``tdata`` is accepted and
-    ignored.  A RouteStream takes its 17 arrays.  A StripELL takes ``{"parts": [part, ...]}``, each part a dict
+    """The port's format ``format`` ('coo', 'csr', 'dia', 'ell', 'bsr',
+    'strip', 'route', 'slab' or 'slab_pack') from the JAX package's frozen
+    arrays ``fields`` (name → numpy array), on ``device``.  A DIA needs
+    ``offsets``; a DIA's ``tdata`` and a BSR's ``chunks`` are accepted and
+    ignored; a BSR's ``occ`` may be None.  A RouteStream takes its 17
+    arrays.  A StripELL takes ``{"parts": [part, ...]}``, each part a dict
     of its arrays (vals, lidx, wrel, wtile, occ) and static fields
-    (block_ids, g4, lidx_pack)."""
+    (block_ids, g4, lidx_pack).  A SlabELL takes its arrays (vals, lidx,
+    win_lo, bucket_cnt, which may be None) and ``buckets``; a SlabPack
+    ``{"parts": [slab, ...], "block_ids", "row_block", "overflow"}``, each
+    part a SlabELL's dict and the overflow a SlabPack's dict or None."""
     shape = tuple(int(s) for s in shape)
     if format == "strip":
         if set(fields) != {"parts"}:
             raise ValueError(f"strip: expected the field 'parts', got {sorted(fields)}")
         return StripELL(parts=tuple(_strip_part(p, shape, device)
                                     for p in fields["parts"]), shape=shape)
+    if format == "slab":
+        return _slab(fields, shape, device)
+    if format == "slab_pack":
+        return _slab_pack(fields, shape, device)
     if format not in _FIELDS:
         raise ValueError(f"unknown format {format!r}; expected one of "
-                         f"{sorted(_FIELDS) + ['strip']}")
+                         f"{sorted(_FIELDS) + ['slab', 'slab_pack', 'strip']}")
     need = _FIELDS[format]
-    missing = [f for f in need if f not in fields]
-    extra = set(fields) - set(need) - set(_IGNORED.get(format, ()))
-    if missing or extra:
-        raise ValueError(f"{format}: missing fields {missing}, unknown fields {sorted(extra)}")
-    host = {f: np.asarray(fields[f]) for f in need}
+    _check_fields(format, fields, need, _IGNORED.get(format, ()))
+    host = {f: np.asarray(fields[f]) for f in need
+            if not (f in _OPTIONAL.get(format, ()) and fields[f] is None)}
     if format == "route":
         return RouteStream.from_host(host, shape, device=device)
     t = {f: to_device(a, None, device) for f, a in host.items()}
@@ -60,18 +81,46 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
         return COO(rows=t["rows"], cols=t["cols"], vals=t["vals"], shape=shape)
     if format == "csr":
         return CSR(shape=shape, **t)._stash_host(**host)
+    if format == "ell":
+        return ELL(shape=shape, **t)
+    if format == "bsr":
+        return BSR(blocks=t["blocks"], block_rows=t["block_rows"],
+                   block_cols=t["block_cols"], occ=t.get("occ"),
+                   shape=shape)._stash_host(**host)
     if offsets is None:
         raise ValueError("dia: offsets are required")
     return DIA(data=t["data"], offsets=tuple(int(o) for o in offsets), shape=shape)
 
 
-def _strip_part(part: dict, shape, device) -> StripPart:
-    need = _STRIP_ARRAYS + _STRIP_STATIC
-    missing = [f for f in need if f not in part]
-    extra = set(part) - set(need)
+def _check_fields(what: str, fields: dict, need, ignored=()) -> None:
+    missing = [f for f in need if f not in fields]
+    extra = set(fields) - set(need) - set(ignored)
     if missing or extra:
-        raise ValueError(f"strip part: missing fields {missing}, unknown "
-                         f"fields {sorted(extra)}")
+        raise ValueError(f"{what}: missing fields {missing}, unknown fields {sorted(extra)}")
+
+
+def _slab(fields: dict, shape, device) -> SlabELL:
+    _check_fields("slab", fields, _SLAB_ARRAYS + _SLAB_STATIC)
+    host = {f: np.asarray(fields[f]) for f in _SLAB_ARRAYS if fields[f] is not None}
+    sl = SlabELL(**{f: to_device(host[f], None, device) if f in host else None
+                    for f in _SLAB_ARRAYS},
+                 shape=shape, buckets=tuple((int(o), int(h)) for o, h in fields["buckets"]))
+    return sl._stash_host(**host)
+
+
+def _slab_pack(fields: dict, shape, device) -> SlabPack:
+    _check_fields("slab_pack", fields, _PACK_FIELDS)
+    rb = int(fields["row_block"])
+    ids = tuple(tuple(int(b) for b in i) for i in fields["block_ids"])
+    parts = tuple(_slab(p, (len(i) * rb, shape[1]), device)
+                  for p, i in zip(fields["parts"], ids))
+    overflow = fields["overflow"]
+    return SlabPack(parts=parts, block_ids=ids, shape=shape, row_block=rb,
+                    overflow=None if overflow is None else _slab_pack(overflow, shape, device))
+
+
+def _strip_part(part: dict, shape, device) -> StripPart:
+    _check_fields("strip part", part, _STRIP_ARRAYS + _STRIP_STATIC)
     host = {f: np.asarray(part[f]) for f in _STRIP_ARRAYS}
     return StripPart(**{f: to_device(a, None, device) for f, a in host.items()},
                      block_ids=tuple(int(b) for b in part["block_ids"]),

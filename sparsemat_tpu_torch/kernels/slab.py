@@ -1,0 +1,308 @@
+"""SlabELL / SlabPack SpMV and SpMM: the CUDA kernels' wrappers, their plain
+versions and launch counters.  Counterpart of the slab halves of two JAX
+modules: ``sparsemat_tpu/kernels/spmv.py`` (``slab_spmv_pallas``,
+``slab_pack_spmv_pallas``, ``slab_spmv_xla``, ``slab_pack_spmv_xla``) and
+``sparsemat_tpu/kernels/spmm.py`` (``slab_spmm_pallas``,
+``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
+
+The CUDA kernels live in ``csrc/slab.cu`` (see the note there for what they
+replace and what bounds them): one launch per level of the matrix (its
+parts, then each overflow pack) over every block of every part, each result
+written straight to its global rows, the overflow's added on top.  The TPU's
+per-part calls, its ``_slab_pack_combine`` permutation and its VMEM-bounded
+column grouping (``slab_spmm_mc``) have no counterpart.  The plain versions
+keep the per-part loop and the permutation, so the two are independent.
+
+Dtypes: the values and x / B are cast to the accumulation dtype of the two
+(bf16/f16 to f32) before the launch; the kernels run in f32 or f64.  A
+wrapper takes the plain version only when its tensors lie on the CPU; on a
+CUDA tensor it launches its kernel or raises.  The layout is checked once
+per matrix and the launch plan cached on it (``_plan``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..formats.slab import WINDOW, SlabELL, SlabPack
+from ..types import FLOAT_DTYPES, accum_dtype
+from .._build import load_cuda
+
+#: kernel launches (plain versions do not count); a SlabPack with an
+#: overflow pack launches twice per product
+LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: columns of B per thread the SpMM kernel is built for
+_MC = (1, 2, 4, 8, 16)
+#: cap on the plain SpMM's materialised (slots, columns) gather of B
+_REF_GATHER_BUDGET = 1 << 29
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernels() -> ctypes.CDLL:
+    """The built and bound ``csrc/slab.cu`` library."""
+    global _lib
+    if _lib is None:
+        lib = load_cuda("slab")
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for s in _SUFFIX.values():
+            fn = getattr(lib, f"smt_slab_spmv_{s}")
+            fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp, vp, i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"smt_slab_spmm_{s}")
+            fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, i32, vp, vp, i32, vp]
+            fn.restype = i32
+        lib.smt_slab_error_string.argtypes = [i32]
+        lib.smt_slab_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+# --- plain versions --------------------------------------------------------------
+
+def _slab_cols(sl: SlabELL) -> torch.Tensor:
+    """(n_rb, C, rb) int64 column of every slot."""
+    w_of = torch.from_numpy(sl._window_of_cpos()).to(sl.vals.device).long()
+    return sl.lidx.long() + (sl.win_lo.long()[:, None, None] + w_of[None, :, None]) * WINDOW
+
+
+def _gather(X: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """X's rows at ``cols``; a column ≥ n_cols reads 0 (the JAX package's
+    fill-mode gather)."""
+    inside = cols < n_cols
+    if n_cols == 0:
+        return X.new_zeros(tuple(cols.shape) + tuple(X.shape[1:]))
+    g = X[torch.where(inside, cols, 0)]
+    return torch.where(inside.reshape(inside.shape + (1,) * (X.dim() - 1)), g, 0)
+
+
+def _combine(pack: SlabPack, part_ys) -> torch.Tensor:
+    """Each part's block rows put back in global block order (the static
+    permutation of ``_slab_pack_combine``), cut to n_rows."""
+    rb = pack.row_block
+    ids = np.concatenate([np.asarray(i, np.int64) for i in pack.block_ids])
+    inv = torch.from_numpy(np.argsort(ids)).to(part_ys[0].device)
+    tail = tuple(part_ys[0].shape[1:])
+    Y = torch.cat([y.reshape((y.shape[0] // rb, rb) + tail) for y in part_ys], dim=0)
+    return Y[inv].reshape((Y.shape[0] * rb,) + tail)[: pack.shape[0]]
+
+
+def slab_spmv_ref(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x: every slot's value times x at its column, summed over the
+    C axis — the JAX package's ``slab_spmv_xla``."""
+    adt = accum_dtype(torch.promote_types(sl.vals.dtype, x.dtype))
+    xg = _gather(x.to(adt), _slab_cols(sl), sl.shape[1])
+    y = torch.sum(sl.vals.to(adt) * xg, dim=1)                  # (n_rb, rb)
+    return y.reshape(-1)[: sl.shape[0]]
+
+
+def slab_pack_spmv_ref(pack: SlabPack, x: torch.Tensor) -> torch.Tensor:
+    """Per part, the permutation back to row order, plus the overflow —
+    the JAX package's ``slab_pack_spmv_xla``."""
+    y = _combine(pack, [slab_spmv_ref(p, x) for p in pack.parts])
+    if pack.overflow is not None:
+        y = y + slab_pack_spmv_ref(pack.overflow, x)
+    return y
+
+
+def slab_spmm_ref(sl: SlabELL, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B column by column as ``slab_spmv_ref`` (the JAX package's
+    ``slab_spmm_xla``, a vmap of the SpMV over columns), B's columns taken
+    in groups whose gather stays within ``_REF_GATHER_BUDGET``."""
+    adt = accum_dtype(torch.promote_types(sl.vals.dtype, B.dtype))
+    n_rb, _, rb = sl.vals.shape
+    m = B.shape[1]
+    cols = _slab_cols(sl)
+    vals = sl.vals.to(adt)[..., None]
+    g = max(_REF_GATHER_BUDGET // max(sl.nse * adt.itemsize, 1), 1)
+    out = [torch.sum(vals * _gather(B[:, j:j + g].to(adt), cols, sl.shape[1]), dim=1)
+           for j in range(0, m, g)]                              # (n_rb, rb, g) each
+    Y = torch.cat(out, dim=2) if out else torch.zeros((n_rb, rb, 0), dtype=adt,
+                                                       device=B.device)
+    return Y.reshape(n_rb * rb, m)[: sl.shape[0]]
+
+
+def slab_pack_spmm_ref(pack: SlabPack, B: torch.Tensor) -> torch.Tensor:
+    """Per part ``slab_spmm_ref``, the permutation back to row order, plus
+    the overflow — as ``slab_pack_spmm_pallas`` composes them (the JAX
+    package has no XLA oracle for it)."""
+    Y = _combine(pack, [slab_spmm_ref(p, B) for p in pack.parts])
+    if pack.overflow is not None:
+        Y = Y + slab_pack_spmm_ref(pack.overflow, B)
+    return Y
+
+
+# --- the kernels -----------------------------------------------------------------
+
+def _levels(mat):
+    """[(parts, block ids per part, rb), ...]: the matrix's parts, then each
+    nested overflow pack's."""
+    if isinstance(mat, SlabELL):
+        return [((mat,), (tuple(range(mat.n_row_blocks)),), mat.row_block)]
+    out = [(mat.parts, mat.block_ids, mat.row_block)]
+    if mat.overflow is not None:
+        if tuple(mat.overflow.shape) != tuple(mat.shape):
+            raise ValueError("slab kernels: the overflow pack's shape differs from "
+                             "the matrix's")
+        out += _levels(mat.overflow)
+    return out
+
+
+def _part_table(parts, vals, wofs, device) -> torch.Tensor:
+    """(n_parts, 6) int64 device table: the pointers of each part's vals /
+    lidx / win_lo / per-slot window ids, then C and the part's first block
+    in the flat grid."""
+    first = np.cumsum([0] + [p.n_row_blocks for p in parts])
+    rows = [[v.data_ptr(), p.lidx.data_ptr(), p.win_lo.data_ptr(), w.data_ptr(),
+             p.c_total, int(f)] for p, v, w, f in zip(parts, vals, wofs, first)]
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+class _Level:
+    """One launch's table: parts, per-slot window ids, and the part index
+    and global block id of every block of the flat grid."""
+
+    def __init__(self, parts, block_ids, rb, first: bool, n_rows: int, device):
+        for p, ids in zip(parts, block_ids):
+            nb, c, prb = p.vals.shape
+            if (prb != rb or tuple(p.lidx.shape) != (nb, c, rb)
+                    or tuple(p.win_lo.shape) != (nb,) or len(ids) != nb
+                    or sum(h for _, h in p.buckets) != c):
+                raise ValueError("slab kernels: a part's arrays do not form a SlabELL "
+                                 "layout")
+            if p.lidx.dtype != torch.int32 or p.win_lo.dtype != torch.int32:
+                raise TypeError("slab kernels: lidx and win_lo must be int32")
+            if not all(t.is_contiguous() for t in (p.vals, p.lidx, p.win_lo)):
+                raise ValueError("slab kernels: the kernels need contiguous part arrays")
+        if rb % 32 or not 0 < rb <= 1024:
+            raise ValueError(f"slab kernels: row block {rb} is not a multiple of 32 "
+                             f"up to 1024")
+        ids = np.concatenate([np.asarray(i, np.int64) for i in block_ids])
+        srt = np.sort(ids)
+        need = -(-n_rows // rb)
+        if (ids.size and (srt[0] < 0 or srt[-1] >= 2 ** 31 or np.any(np.diff(srt) == 0))) \
+                or (first and not np.array_equal(srt[:need], np.arange(need))):
+            raise ValueError("slab kernels: every row block must be in exactly one part")
+        self.parts = parts
+        self.rb = rb
+        self.n_blocks = int(ids.size)
+        self.part_of = torch.from_numpy(np.concatenate(
+            [np.full(p.n_row_blocks, i, np.int32) for i, p in enumerate(parts)])).to(device)
+        self.block_ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+        self.wofs = [torch.from_numpy(p._window_of_cpos()).to(device) for p in parts]
+        self.table = _part_table(parts, [p.vals for p in parts], self.wofs, device)
+
+    def table_for(self, adt: torch.dtype):
+        """The table over the parts' values cast to ``adt``, and the casts
+        (kept alive by the caller until the launch is enqueued; the caching
+        allocator keeps them until it has run on this stream)."""
+        if adt == self.parts[0].vals.dtype:
+            return self.table, None
+        vals = [p.vals.to(adt) for p in self.parts]
+        return _part_table(self.parts, vals, self.wofs, vals[0].device), vals
+
+
+class _Plan:
+    """The launch levels of a SlabELL or SlabPack, checked once."""
+
+    def __init__(self, mat):
+        dev = mat.data.device
+        levels = _levels(mat)
+        tensors = [t for parts, _, _ in levels for p in parts for t in (p.vals, p.lidx, p.win_lo)]
+        if dev.type != "cuda" or any(t.device != dev for t in tensors):
+            raise ValueError(f"slab kernels: the kernels need every part on one CUDA "
+                             f"device, got {dev}")
+        dtypes = {p.vals.dtype for parts, _, _ in levels for p in parts}
+        if len(dtypes) != 1 or mat.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"slab kernels: the CUDA kernels take float values of one "
+                            f"dtype, got {sorted(map(str, dtypes))}")
+        self.levels = [_Level(parts, ids, rb, i == 0, mat.shape[0], dev)
+                       for i, (parts, ids, rb) in enumerate(levels)]
+
+
+def _plan(mat) -> _Plan:
+    """The matrix's launch plan, cached on it (a frozen matrix's layout and
+    values never change)."""
+    plan = mat.__dict__.get("_slab_plan")
+    if plan is None:
+        plan = _Plan(mat)
+        object.__setattr__(mat, "_slab_plan", plan)
+    return plan
+
+
+def _launch(mat, X: torch.Tensor, kind: str) -> torch.Tensor:
+    """Y = A @ X through the kernels, X a vector (``kind`` 'slab_spmv') or
+    an (n_cols, m) matrix ('slab_spmm')."""
+    n_rows, n_cols = mat.shape
+    if X.device != mat.data.device:
+        raise ValueError(f"{kind}: matrix on {mat.data.device} and operand on "
+                         f"{X.device}; the kernels need both on one CUDA device")
+    if X.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{kind}: the CUDA kernels take a float operand, got {X.dtype}")
+    want = (n_cols,) if kind == "slab_spmv" else (n_cols, X.shape[-1])
+    if tuple(X.shape) != want or X.dim() != len(want):
+        raise ValueError(f"{kind}: operand of shape {tuple(X.shape)} for a {mat.shape} "
+                         f"matrix")
+    plan = _plan(mat)
+    adt = accum_dtype(torch.promote_types(mat.dtype, X.dtype))
+    X = X.to(adt).contiguous()
+    Y = torch.empty((n_rows,) + tuple(X.shape[1:]), dtype=adt, device=X.device)
+    if Y.numel() == 0:
+        return Y
+    lib = _kernels()
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    for i, lvl in enumerate(plan.levels):
+        table, _casts = lvl.table_for(adt)
+        args = (table.data_ptr(), lvl.part_of.data_ptr(), lvl.block_ids.data_ptr(),
+                lvl.n_blocks, lvl.rb, n_rows, n_cols)
+        with torch.cuda.device(X.device):
+            if kind == "slab_spmv":
+                rc = getattr(lib, f"smt_slab_spmv_{_SUFFIX[adt]}")(
+                    *args, X.data_ptr(), Y.data_ptr(), int(i > 0), stream)
+            else:
+                m = X.shape[1]
+                mc = next((c for c in _MC if c >= m), _MC[-1])
+                rc = getattr(lib, f"smt_slab_spmm_{_SUFFIX[adt]}")(
+                    *args, m, mc, X.data_ptr(), Y.data_ptr(), int(i > 0), stream)
+        if rc != 0:
+            msg = lib.smt_slab_error_string(rc).decode()
+            raise RuntimeError(f"{kind}: CUDA error {rc} ({msg})")
+        LAUNCHES[kind] += 1
+    return Y
+
+
+def _on_cpu(mat, X) -> bool:
+    return mat.data.device.type == "cpu" and X.device.type == "cpu"
+
+
+def slab_spmv(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a SlabELL.  CUDA: one launch of ``slab_spmv_kernel``;
+    CPU: the plain version."""
+    return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch(sl, x, "slab_spmv")
+
+
+def slab_pack_spmv(pack: SlabPack, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a SlabPack.  CUDA: one launch of ``slab_spmv_kernel``
+    over all parts, one more per overflow pack; CPU: the plain version."""
+    return slab_pack_spmv_ref(pack, x) if _on_cpu(pack, x) else _launch(pack, x, "slab_spmv")
+
+
+def slab_spmm(sl: SlabELL, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B over a SlabELL.  CUDA: one launch of ``slab_spmm_kernel``;
+    CPU: the plain version."""
+    return slab_spmm_ref(sl, B) if _on_cpu(sl, B) else _launch(sl, B, "slab_spmm")
+
+
+def slab_pack_spmm(pack: SlabPack, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B over a SlabPack.  CUDA: one launch of ``slab_spmm_kernel``
+    over all parts, one more per overflow pack; CPU: the plain version."""
+    return slab_pack_spmm_ref(pack, B) if _on_cpu(pack, B) else _launch(pack, B, "slab_spmm")

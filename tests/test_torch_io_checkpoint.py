@@ -268,7 +268,7 @@ def test_version_1_flat_files_load_in_both_packages(tmp_path):
     np.testing.assert_allclose(back.todense().numpy(), dense, rtol=1e-6)
 
 
-@pytest.mark.parametrize("fmt", ["ell", "slab_pack"])
+@pytest.mark.parametrize("fmt", ["sell", "slab_stream"])
 def test_an_unported_format_raises_and_names_it(fmt, tmp_path):
     jsm, _, jck = jax_ref()
     m, _ = random_matrix(seed=7)

@@ -1,0 +1,433 @@
+"""The port's ``spmm`` dispatch, the new ``spmv`` branches, ``A @ B``, the
+ELL format, checkpoints and ``from_reference`` of the four new formats
+(BSR, ELL, SlabELL, SlabPack), and the SpMM slice end to end, all against
+``sparsemat_tpu`` on the same seeded inputs.
+
+Tolerances: relative to max|reference|, 1e-5 in f32 and 1e-12 in f64 (the
+same sums in other orders).  The f64 BiCGStab solve: iteration counts
+within one (the last residual may cross the threshold a step apart) and x
+to 1e-8.  f32 operands are passed explicitly,
+because ``tests/conftest.py`` turns on JAX's x64 mode.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import sparsemat_tpu_torch as tsm
+from sparsemat_tpu_torch import checkpoint as tck
+from sparsemat_tpu_torch.interop import from_reference
+from sparsemat_tpu_torch.kernels import slab as ksl
+from sparsemat_tpu_torch.kernels import spmm as ksp
+from sparsemat_tpu_torch.ops import matvec as tmv
+
+NEW_FORMATS = ["bsr", "ell", "slab", "slab_pack"]
+
+
+def banded(n=300, seed=0, skew_rows=False):
+    """Random entries within 60 of the diagonal plus a diagonal;
+    ``skew_rows`` gives a few rows 120 entries, so ELL pads too much and
+    ``spmm`` of a CSR takes the stream path."""
+    rng = np.random.default_rng(seed)
+    m = sp.random(n, n, 0.04, random_state=rng, format="coo", dtype=np.float64)
+    keep = np.abs(m.row - m.col) <= 60
+    m = sp.coo_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=(n, n)).tocsr()
+    m = m + sp.eye(n, format="csr")
+    if skew_rows:
+        m = m.tolil()
+        for r in (3, 150):
+            m[r, rng.choice(n, 120, replace=False)] = rng.standard_normal(120)
+    m = sp.csr_matrix(m)
+    m.sort_indices()
+    return m
+
+
+def jax_ref():
+    """The JAX package, jax.numpy, its checkpoint module and its ops
+    module (imported here, so this file's CUDA tests run without JAX)."""
+    jsm = pytest.importorskip("sparsemat_tpu")
+    import jax.numpy as jnp
+    from sparsemat_tpu import checkpoint as jck
+    from sparsemat_tpu.ops import matvec as jmv
+
+    return jsm, jnp, jck, jmv
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if not b.size:
+        return 0.0
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+def freeze(pkg, m, fmt):
+    csr = pkg.CSR.from_scipy(m)
+    if fmt == "bsr":
+        return pkg.BSR.from_csr(csr)
+    if fmt == "coo":
+        return csr.to_coo()
+    return csr if fmt == "csr" else getattr(csr, f"to_{fmt}")()
+
+
+TOL = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+# -- spmm against sparsemat_tpu.spmm ------------------------------------------------
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("fmt", ["csr", "coo", "bsr", "dia", "ell", "slab", "slab_pack"])
+def test_spmm_by_format_matches_reference(fmt, dt):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded().astype(dt)
+    B = np.random.default_rng(1).standard_normal((300, 11)).astype(dt)
+    want = jsm.spmm(freeze(jsm, m, fmt), jnp.asarray(B))
+    got = tsm.spmm(freeze(tsm, m, fmt), torch.from_numpy(B))
+    assert got.dtype == torch.from_numpy(B).dtype and got.shape == (300, 11)
+    assert rel_err(got, want) < TOL[dt]
+    assert rel_err(got, m @ B) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("method", [None, "pallas", "bsr", "dia", "slab_pack", "slab", "ell"])
+def test_spmm_methods_match_reference(method, dt):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=2).astype(dt)
+    B = np.random.default_rng(3).standard_normal((300, 6)).astype(dt)
+    want = jsm.spmm(jsm.CSR.from_scipy(m), jnp.asarray(B), method=method)
+    got = tsm.spmm(tsm.CSR.from_scipy(m), torch.from_numpy(B), method=method)
+    assert rel_err(got, want) < TOL[dt]
+
+
+def test_spmm_gell_and_unknown_methods_raise():
+    csr = tsm.CSR.from_scipy(banded())
+    B = torch.zeros(300, 2)
+    for method in ("gell", "stream", "nope"):
+        with pytest.raises(ValueError, match="not ported"):
+            tsm.spmm(csr, B, method=method)
+    with pytest.raises(ValueError, match="dimension"):
+        tsm.spmm(csr, torch.zeros(299, 2))
+
+
+@pytest.mark.parametrize("skew_rows", [False, True], ids=["ell", "stream"])
+def test_csr_spmm_takes_the_ell_or_stream_path_as_reference(skew_rows, monkeypatch):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=4, skew_rows=skew_rows).astype(np.float32)
+    taken = {"jax": [], "torch": []}
+    for mod, key in ((jmv, "jax"), (tmv, "torch")):
+        for fn in ("_ell_spmm", "_stream_spmm_tiled"):
+            orig = getattr(mod, fn)
+            monkeypatch.setattr(mod, fn, lambda *a, _o=orig, _f=fn, _k=key:
+                                taken[_k].append(_f) or _o(*a))
+    B = np.random.default_rng(5).standard_normal((300, 4)).astype(np.float32)
+    want = jsm.spmm(jsm.CSR.from_scipy(m), jnp.asarray(B))
+    got = tsm.spmm(tsm.CSR.from_scipy(m), torch.from_numpy(B))
+    assert taken["torch"] == taken["jax"] == ["_stream_spmm_tiled" if skew_rows else "_ell_spmm"]
+    assert rel_err(got, want) < 1e-5
+
+
+def test_stream_spmm_tiles_columns_within_the_budget(monkeypatch):
+    m = banded(seed=6, skew_rows=True)
+    csr = tsm.CSR.from_scipy(m)
+    B = torch.from_numpy(np.random.default_rng(7).standard_normal((300, 10)))
+    whole = tsm.spmm(csr, B)
+    monkeypatch.setattr(tmv, "_SPMM_GATHER_BUDGET", csr.nse * 8 * 3)   # 3 columns a tile
+    tiled = tsm.spmm(csr, B)
+    assert torch.equal(tiled, whole) and torch.equal(tsm.spmm(csr, B), tiled)
+    assert rel_err(tiled, m @ B.numpy()) < 1e-12
+
+
+def test_matmul_with_a_rank_2_operand():
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=8).astype(np.float32)
+    B = np.random.default_rng(9).standard_normal((300, 5)).astype(np.float32)
+    for fmt in ("csr", "bsr", "slab_pack"):
+        mat = freeze(tsm, m, fmt)
+        assert torch.equal(mat @ torch.from_numpy(B), tsm.spmm(mat, torch.from_numpy(B)))
+        assert rel_err(mat @ B, jsm.CSR.from_scipy(m) @ jnp.asarray(B)) < 1e-5
+    csr = tsm.CSR.from_scipy(m)
+    with pytest.raises(NotImplementedError, match="spgemm"):
+        csr @ csr
+    with pytest.raises(ValueError, match="rank 3"):
+        csr @ torch.zeros(300, 2, 2)
+
+
+def test_spmm_of_no_columns_and_of_an_empty_matrix():
+    e = sp.csr_matrix((40, 30), dtype=np.float32)
+    for fmt in ("csr", "bsr", "ell", "slab", "slab_pack"):
+        mat = freeze(tsm, e, fmt)
+        assert torch.equal(tsm.spmm(mat, torch.ones(30, 3)), torch.zeros(40, 3)), fmt
+        assert tsm.spmm(freeze(tsm, banded(), fmt), torch.ones(300, 0)).shape == (300, 0)
+
+
+# -- the new spmv branches ---------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell", "slab", "slab_pack"])
+def test_spmv_of_the_new_formats_matches_reference(fmt):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=10).astype(np.float32)
+    x = np.random.default_rng(11).standard_normal(300).astype(np.float32)
+    jmat, tmat = freeze(jsm, m, fmt), freeze(tsm, m, fmt)
+    want = jsm.spmv(jmat, jnp.asarray(x))
+    got = tsm.spmv(tmat, torch.from_numpy(x))
+    assert rel_err(got, want) < 1e-5
+    assert torch.equal(tmat @ torch.from_numpy(x), got)
+    y, d = tsm.spmv_dot(tmat, torch.from_numpy(x))
+    jy, jd = jsm.spmv_dot(jmat, jnp.asarray(x))
+    assert torch.equal(y, got) and float(d) == pytest.approx(float(jd), rel=1e-5)
+    assert rel_err(tsm.spmv_chain(tmat, torch.from_numpy(x), 3),
+                   jsm.spmv_chain(jmat, jnp.asarray(x), 3)) < 1e-5
+
+
+@pytest.mark.parametrize("method", ["slab_pack", "slab", "ell"])
+def test_spmv_methods_match_reference(method):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=12)
+    x = np.random.default_rng(13).standard_normal(300)
+    want = jsm.spmv(jsm.CSR.from_scipy(m), jnp.asarray(x), method=method)
+    assert rel_err(tsm.spmv(tsm.CSR.from_scipy(m), torch.from_numpy(x), method=method),
+                   want) < 1e-12
+
+
+def test_spmv_methods_not_ported_raise():
+    csr = tsm.CSR.from_scipy(banded())
+    for method in ("pallas", "slab_stream", "gell"):
+        with pytest.raises(ValueError, match="not ported"):
+            tsm.spmv(csr, torch.zeros(300), method=method)
+
+
+# -- ELL -------------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("seed,skew", [(14, False), (15, True)])
+def test_ell_freeze_equals_reference(seed, skew, k):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = banded(seed=seed, skew_rows=skew).astype(np.float32)
+    m = m[:-5]                               # rows not a multiple of ROW_PAD
+    je = jsm.CSR.from_scipy(m).to_ell(n_cols_per_row=k)
+    te = tsm.CSR.from_scipy(m).to_ell(n_cols_per_row=k)
+    for f in ("cols", "vals", "row_nnz"):
+        a, b = np.asarray(getattr(je, f)), getattr(te, f).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+    assert (te.nse, te.n_cols_per_row, te.index_dtype) == (je.nse, je.n_cols_per_row,
+                                                            torch.int32)
+    assert te.n_non_zero_entries() == int(je.n_non_zero_entries())
+    assert te.fill_ratio() == pytest.approx(te.n_non_zero_entries() / je.nse)
+    assert torch.equal(tsm.COO.from_arrays(*(np.asarray(a) for a in (
+        sp.coo_matrix(m).row, sp.coo_matrix(m).col, sp.coo_matrix(m).data)),
+        shape=m.shape).to_ell(n_cols_per_row=k).cols, te.cols) or k is not None
+
+
+def test_ell_round_trip_keeps_stored_zeros():
+    m = banded(seed=16).astype(np.float32)
+    m.data[[0, 9]] = 0.0
+    te = tsm.CSR.from_scipy(m).to_ell()
+    back = te.to_csr()
+    assert back.n_non_zero_entries() == te.n_non_zero_entries() == m.nnz
+    np.testing.assert_array_equal(back.indptr.numpy(), m.indptr)
+    np.testing.assert_array_equal(back.indices[:m.nnz].numpy(), m.indices)
+    np.testing.assert_array_equal(te.todense().numpy(), m.toarray())
+    assert rel_err(tsm.spmv(te.scale(2.0), torch.ones(300)), 2 * (m @ np.ones(300))) < 1e-5
+    b = tsm.SparseBuilder()
+    b.add_batch(*sp.find(m))
+    assert torch.equal(b.to_ell().vals, tsm.CSR.from_scipy(sp.csr_matrix(
+        sp.coo_matrix((sp.find(m)[2], sp.find(m)[:2]), shape=m.shape))).to_ell().vals)
+
+
+# -- checkpoints and from_reference of the new formats --------------------------------------
+
+def arrays_of(v, key="", out=None):
+    """Every array of a format (either package's) keyed by its path
+    (``parts.0.vals``), static metadata left out."""
+    out = {} if out is None else out
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        for f in dataclasses.fields(v):
+            arrays_of(getattr(v, f.name), f"{key}.{f.name}" if key else f.name, out)
+    elif isinstance(v, (tuple, list)):
+        for i, e in enumerate(v):
+            arrays_of(e, f"{key}.{i}", out)
+    elif isinstance(v, torch.Tensor):
+        out[key] = v.cpu().numpy()
+    elif hasattr(v, "shape") and hasattr(v, "dtype") and not isinstance(v, np.generic):
+        out[key] = np.asarray(v)
+    return out
+
+
+def statics_of(v):
+    """The static fields the two packages share (buckets, block ids, row
+    blocks), nested."""
+    out = {}
+    for name in ("buckets", "block_ids", "row_block"):
+        if hasattr(v, name):
+            out[name] = tuple(getattr(v, name)) if name != "row_block" else v.row_block
+    if getattr(v, "parts", None):
+        out["parts"] = [statics_of(p) for p in v.parts]
+    if getattr(v, "overflow", None) is not None:
+        out["overflow"] = statics_of(v.overflow)
+    return out
+
+
+def assert_same_matrix(tmat, jmat):
+    assert type(tmat).__name__ == type(jmat).__name__ and tmat.shape == tuple(jmat.shape)
+    want, got = arrays_of(jmat), arrays_of(tmat)
+    assert sorted(got) == sorted(want)
+    for k, a in want.items():
+        assert got[k].dtype == a.dtype and got[k].shape == a.shape, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
+    assert statics_of(tmat) == statics_of(jmat)
+
+
+def mixed():
+    """A matrix whose default SlabPack has an overflow pack."""
+    rng = np.random.default_rng(17)
+    n = 400
+    deg = np.where(np.arange(n) % 7, 3, 60)
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.clip(rows + rng.integers(-300, 301, rows.size), 0, n - 1)
+    m = sp.coo_matrix((rng.standard_normal(rows.size), (rows, cols)), shape=(n, n)).tocsr()
+    m.sum_duplicates()
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", NEW_FORMATS + ["bsr_device"])
+def test_checkpoints_load_in_both_packages(fmt, tmp_path):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = mixed()
+    if fmt == "bsr_device":
+        jmat = jsm.BSR.from_csr_device(jsm.CSR.from_scipy(m))
+        tmat = tsm.BSR.from_csr_device(tsm.CSR.from_scipy(m))
+    else:
+        jmat, tmat = freeze(jsm, m, fmt), freeze(tsm, m, fmt)
+    if fmt == "slab_pack":
+        assert tmat.overflow is not None
+    x = np.random.default_rng(18).standard_normal(m.shape[1]).astype(np.float32)
+    pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jck.save_matrix(pj, jmat)
+    tck.save_matrix(pt, tmat)
+    back_t = tck.load_matrix(pj)            # the JAX package's file in the port
+    back_j = jck.load_matrix(pt)            # the port's file in the JAX package
+    assert_same_matrix(back_t, jmat)
+    assert_same_matrix(tmat, back_j)
+    assert rel_err(tsm.spmv(back_t, torch.from_numpy(x)), m @ x) < 1e-5
+    assert rel_err(jsm.spmv(back_j, jnp.asarray(x)), m @ x) < 1e-5
+    again = tck.load_matrix(pt, device="cpu")
+    assert torch.equal(tsm.spmv(again, torch.from_numpy(x)), tsm.spmv(tmat, torch.from_numpy(x)))
+
+
+def test_checkpoint_of_an_empty_slab_pack(tmp_path):
+    jsm, jnp, jck, jmv = jax_ref()
+    e = sp.csr_matrix((300, 200), dtype=np.float32)
+    tmat = freeze(tsm, e, "slab_pack")
+    p = str(tmp_path / "e.npz")
+    tck.save_matrix(p, tmat)
+    assert_same_matrix(tmat, jck.load_matrix(p))
+    assert_same_matrix(tck.load_matrix(p), freeze(jsm, e, "slab_pack"))
+
+
+def reference_fields(jmat, fmt):
+    """The JAX package's frozen arrays as ``from_reference`` takes them."""
+    if fmt in ("bsr", "ell"):
+        names = {"bsr": ("blocks", "block_rows", "block_cols", "occ", "chunks"),
+                 "ell": ("cols", "vals", "row_nnz")}[fmt]
+        return {f: (None if getattr(jmat, f) is None else
+                    getattr(jmat, f) if f == "chunks" else np.asarray(getattr(jmat, f)))
+                for f in names}
+    if fmt == "slab":
+        return {**{f: None if getattr(jmat, f) is None else np.asarray(getattr(jmat, f))
+                   for f in ("vals", "lidx", "win_lo", "bucket_cnt")},
+                "buckets": jmat.buckets}
+    return {"parts": [reference_fields(p, "slab") for p in jmat.parts],
+            "block_ids": jmat.block_ids, "row_block": jmat.row_block,
+            "overflow": (None if jmat.overflow is None
+                         else reference_fields(jmat.overflow, "slab_pack"))}
+
+
+@pytest.mark.parametrize("fmt", NEW_FORMATS + ["bsr_device"])
+def test_from_reference(fmt):
+    jsm, jnp, jck, jmv = jax_ref()
+    m = mixed()
+    if fmt == "bsr_device":
+        jmat, fmt = jsm.BSR.from_csr_device(jsm.CSR.from_scipy(m)), "bsr"
+    else:
+        jmat = freeze(jsm, m, fmt)
+    tmat = from_reference(reference_fields(jmat, fmt), format=fmt, shape=jmat.shape)
+    assert_same_matrix(tmat, jmat)
+    B = np.random.default_rng(19).standard_normal((m.shape[1], 3)).astype(np.float32)
+    assert rel_err(tsm.spmm(tmat, torch.from_numpy(B)), m @ B) < 1e-5
+    with pytest.raises(ValueError, match="missing"):
+        from_reference({}, format=fmt, shape=jmat.shape)
+
+
+# -- the slice end to end -------------------------------------------------------------------
+
+def test_spmm_path_end_to_end():
+    """SparseBuilder → CSR → BSR (host and device freeze) / SlabPack / SlabELL
+    → spmm, against the JAX package; SlabPack → spmv inside BiCGStab."""
+    jsm, jnp, jck, jmv = jax_ref()
+    rng = np.random.default_rng(20)
+    m = mixed()
+    n = m.shape[0]
+    r, c, v = sp.find(m)
+    b = tsm.SparseBuilder()
+    b.add_batch(r, c, v)
+    tcsr = b.to_csr()
+    jcsr = jsm.CSR.from_scipy(m)
+    B = rng.standard_normal((n, 16)).astype(np.float32)
+    want = jsm.spmm(jsm.BSR.from_csr(jcsr, br=16, bc=256), jnp.asarray(B))
+    for mat in (tsm.BSR.from_csr(tcsr, br=16, bc=256),
+                tsm.BSR.from_csr_device(tcsr, br=16, bc=256),
+                tcsr.to_slab_pack(), tcsr.to_slab()):
+        assert rel_err(tsm.spmm(mat, torch.from_numpy(B)), want) < 1e-5
+
+    dom = (m + sp.diags(np.asarray(abs(m).sum(1)).ravel() + 1.0)).tocsr().astype(np.float64)
+    rhs = rng.standard_normal(n)
+    tol = 1e-10 * float(np.linalg.norm(rhs))
+    pk = tsm.CSR.from_scipy(dom).to_slab_pack()
+    assert pk.overflow is not None
+    ksl.reset_launches()
+    x, info = tsm.solvers.bicgstab(pk, torch.from_numpy(rhs), tol=tol)
+    jx, jinfo = jsm.solvers.bicgstab(jsm.CSR.from_scipy(dom).to_slab_pack(),
+                                     jnp.asarray(rhs), tol=tol)
+    assert bool(info.converged) and bool(jinfo.converged)
+    assert abs(int(info.iterations) - int(jinfo.iterations)) <= 1
+    assert rel_err(x, jx) < 1e-8
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0} and ksp.LAUNCHES["bsr_spmm"] == 0
+
+
+# -- the dispatch on a CUDA card (needs a card) ------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_goes_through_the_kernels(cuda):
+    m = mixed()
+    csr = tsm.CSR.from_scipy(m, device=cuda)
+    B = torch.randn(m.shape[1], 9, device=cuda)
+    x = B[:, 0].contiguous()
+    want = torch.from_numpy(m.astype(np.float64) @ B.double().cpu().numpy())
+    ksp.reset_launches()
+    ksl.reset_launches()
+    for mat in (tsm.BSR.from_csr(csr), tsm.BSR.from_csr_device(csr, br=64, bc=256),
+                csr.to_slab_pack(), csr.to_slab()):
+        assert rel_err((mat @ B).cpu(), want) < 1e-5
+        assert rel_err(tsm.spmm(mat, B).cpu(), want) < 1e-5
+    for method in ("pallas", "slab_pack", "slab"):
+        assert rel_err(tsm.spmm(csr, B, method=method).cpu(), want) < 1e-5
+    for mat in (csr.to_slab_pack(), csr.to_slab()):
+        assert rel_err(tsm.spmv(mat, x).cpu(), want[:, 0]) < 1e-5
+    torch.cuda.synchronize()
+    assert ksp.LAUNCHES["bsr_spmm"] == 5
+    n_levels = 1 + (csr.to_slab_pack().overflow is not None)
+    assert ksl.LAUNCHES == {"slab_spmm": 2 * (n_levels + 1) + n_levels + 1,
+                            "slab_spmv": n_levels + 1}
+    for mat in (csr, csr.to_ell(), csr.to_coo()):          # no kernel of their own
+        assert rel_err(tsm.spmm(mat, B).cpu(), want) < 1e-5

@@ -225,7 +225,7 @@ def test_spmv_dispatch_and_method():
     y3 = tsm.spmv_chain(st, x, 3)
     assert rel_err(y3, m @ (m @ (m @ x.numpy()))) < 1e-5
     with pytest.raises(ValueError, match="not ported"):
-        tsm.spmv(csr, x, method="slab")
+        tsm.spmv(csr, x, method="slab_stream")
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
