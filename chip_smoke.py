@@ -17,7 +17,12 @@ benchmark's config 4a).  The SpMM path: the pwtk-class operator
 ``matgen.fem_block_band() * 2e-2`` at its full 217,920 rows (the reference
 benchmark's fem SpMV/SpMM configs) → CSR → BSR.from_csr_device (512×128
 blocks) → spmm at m = 128 through the BSR kernel, and → SlabPack / SlabELL
-→ spmv and spmm through the slab kernels.
+→ spmv and spmm through the slab kernels.  The general-matrix path: the
+circuit operator through io.load_mtx and checkpoint.load_matrix with no
+device named (the current card) → WELL → spmv through the WELL kernel →
+BiCGStab, GMRES(30) and rmatvec; the FEM operator → SlabStream → spmv
+through the SlabStream kernel → PCG(Jacobi); auto_format on the Poisson,
+FEM and circuit operators.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
@@ -92,6 +97,44 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 SlabPack SpMV in GB/s of spmv_traffic_bytes beside the strip
                 and SlabELL SpMV, SlabPack SpMM per call; the host seconds of
                 the freezes
+ 21 well        the WELL kernel against its plain version, f32, f64 and bf16
+                values: tests/test_well.py's matrices (random 300², wide
+                64×1000, tall 1000×64, empty rows, a dense row), k_tile = 4
+                overflow tiles, a stored zero, nnz = 0
+ 22 slab stream the SlabStream kernel against its plain version, f32, f64 and
+                bf16 values: mixed-degree 2000 at rb 256 and 1100 at rb 128,
+                rectangular 300×900 and 900×300, an empty matrix, a stored
+                zero
+ 23 general     the general-matrix path at full size: the circuit operator
+                via save_mtx / load_mtx and a WELL checkpoint, both loaded
+                with no device named (they must land on the card), → WELL →
+                spmv against the CSR stream path, method='pallas' and the
+                reloaded WELL bitwise equal, BiCGStab and GMRES(30) through
+                the WELL kernel, rmatvec against scipy's Aᵀy; the FEM SPD
+                operator of phase 10 → SlabStream → spmv against the strip
+                kernel and the CSR stream path, PCG(Jacobi), a SlabStream
+                checkpoint reloaded; auto_format picks DIA, StripELL and
+                RouteStream for the Poisson, FEM and circuit operators; each
+                kernel against its plain version at full size, f32 and f64;
+                the well_spmv and slab_stream_spmv launch counters must be
+                > 0; WELL spmv, SlabStream spmv, rmatvec and BiCGStab rerun
+                bitwise
+ 24 times       each new kernel against its plain version (CUDA events per
+                call, wrapper included) and its device time (profiler), GB/s
+                of spmv_traffic_bytes, BiCGStab iterations/s through the WELL
+                kernel and PCG(Jacobi) iterations/s through the SlabStream
+                kernel (against the plain versions), the host seconds of
+                to_well and to_slab_stream
+Every kernel's timing phase also times one PyTorch library call that
+computes the same function on the same operator (torch.mv or
+torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot, the chain
+and the two route halves), as a yardstick only; computes the kernel's
+bound: the larger of the bytes the function needs over 3.35 TB/s and its
+f32 operations over 67 Tflop/s (the H100 SXM's published rates), where a
+sparse product needs its entries in CSR (value and column index, row
+pointers), x or B once and y or Y once, and a DIA band its diagonals, x and
+y; and measures the kernel's launches per step of its path (per solver
+iteration, or per product), from the launch counts over k and 2k steps.
 Then a JSON line of the kernels and, last, the device JSON line.
 
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
@@ -115,6 +158,7 @@ import os
 import subprocess
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -129,6 +173,7 @@ from sparsemat_tpu_torch.kernels import route as kr
 from sparsemat_tpu_torch.kernels import slab as ksl
 from sparsemat_tpu_torch.kernels import spmm as ksp
 from sparsemat_tpu_torch.kernels import strip as ks
+from sparsemat_tpu_torch.kernels import well as kw
 from sparsemat_tpu_torch.native import get_lib
 
 #: kernel → (its source, the TPU kernel it replaces)
@@ -145,9 +190,13 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "bsr_spmm": ("sparsemat_tpu_torch/csrc/bsr.cu",
                         "sparsemat_tpu/kernels/spmm.py:72"),
            "slab_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
-                         "sparsemat_tpu/kernels/spmv.py:165"),
+                         "sparsemat_tpu/kernels/spmv.py:165, sparsemat_tpu/kernels/spmv.py:271"),
            "slab_spmm": ("sparsemat_tpu_torch/csrc/slab.cu",
-                         "sparsemat_tpu/kernels/spmm.py:204")}
+                         "sparsemat_tpu/kernels/spmm.py:204, sparsemat_tpu/kernels/spmm.py:301"),
+           "well_spmv": ("sparsemat_tpu_torch/csrc/well.cu",
+                         "sparsemat_tpu/kernels/spmv.py:50"),
+           "slab_stream_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
+                                "sparsemat_tpu/kernels/spmv.py:320")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
@@ -155,12 +204,19 @@ SEED = 0
 #: the true relative residual (f64, host) each converged solve must meet
 SOLVE_RTOL = 1e-5
 SOLVE_TRUE_REL = 1e-4
+#: the H100 SXM's published device-memory rate and f32 rate outside the
+#: tensor cores (the kernels' f32 arithmetic): the denominators of bound_ms
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 MAX_ABS = {name: 0.0 for name in KERNELS}
 
 
+T0 = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg} ({time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def check(cond, msg):
@@ -263,6 +319,77 @@ def paired_ms(kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, [k1, k2], [p1, p2]
 
 
+def bound_ms(n_bytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes the function must move over the memory rate
+    and its operations over the f32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def need_bytes(nnz, shape, m=1, val_bytes=4):
+    """The bytes a sparse product needs, whatever its layout: the stored
+    entries in CSR (a value and a 4-byte column index each, a 4-byte row
+    pointer per row), x (B, m columns) read once and y (Y) written once.
+    A layout's padding, tiles and tables are the kernel's own cost, not the
+    function's."""
+    n_rows, n_cols = shape
+    return nnz * (val_bytes + 4) + (n_rows + 1) * 4 + (n_rows + n_cols) * m * val_bytes
+
+
+def record(times, name, k_ms, p_ms, n_bytes, flops, lib_ms):
+    """A kernel's row of the kernels JSON line: its time and its plain
+    version's, its bound from this run's inputs (``n_bytes`` the bytes the
+    function needs, ``flops`` its operations), and the library call's."""
+    b_ms, by = bound_ms(n_bytes, flops)
+    times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                   "bound_bytes": n_bytes, "library_ms": lib_ms}
+    return b_ms, by
+
+
+def per_step(counts, run, k):
+    """Each kernel's launches per step of ``run`` (``run(j)`` takes j solver
+    iterations, or makes j products): the rise of ``counts()`` over 2k steps
+    less its rise over k, divided by k, so launches outside the loop cancel."""
+    rises = []
+    for steps in (k, 2 * k):
+        before = dict(counts())
+        run(steps)
+        torch.cuda.synchronize()
+        rises.append({n: c - before[n] for n, c in counts().items()})
+    return {n: (rises[1][n] - rises[0][n]) / k for n in rises[0]}
+
+
+def note_steps(times, name, rate, what):
+    """Add a kernel's launches per step of its path to its row of the JSON
+    line (after ``record``)."""
+    check(rate > 0, f"{what}: {name} launched no time per step")
+    times[name].update(launches_per_step=rate, step=what)
+    return rate
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def torch_csr(csr):
+    """The operator as a torch.sparse_csr_tensor: the yardstick's operand,
+    used by no path of the port."""
+    nnz = csr.n_non_zero_entries()
+    with warnings.catch_warnings():         # PyTorch's beta notice for sparse CSR
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(csr.indptr.long(), csr.indices[:nnz].long(),
+                                       csr.data[:nnz], csr.shape)
+
+
+def library_ms(fn, iters):
+    """CUDA-event ms per call of one PyTorch library call: the yardstick of
+    a kernel (torch.mv or torch.sparse.mm on the same operator).  A failure
+    raises; rows with no single-call equivalent pass None instead."""
+    return cuda_ms(fn, iters)
+
+
 def cg_iters_per_s(A, b, iters, M=None):
     solvers.cg(A, b, tol=0.0, maxiter=32, M=M)
     torch.cuda.synchronize()
@@ -284,7 +411,8 @@ def build_all():
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
             "csrc/route.cu": kr._kernels, "csrc/bsr.cu": ksp._kernels,
-            "csrc/slab.cu": ksl._kernels, "C++ assembly store": get_lib}
+            "csrc/slab.cu": ksl._kernels, "csrc/well.cu": kw._kernels,
+            "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         results = {name: f.result() for name, f in futs.items()}
@@ -584,14 +712,23 @@ def fem_phases(dev, g, times, launches):
     # 12 -----------------------------------------------------------------------
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ks.strip_spmv(st, x),
                                            lambda: ks.strip_spmv_ref(st, x), 20)
-    times["strip_spmv"] = (k_ms, p_ms)
+    A_lib = torch_csr(csr)
+    lib = library_ms(lambda: torch.mv(A_lib, x), 20)
+    del A_lib
+    b_ms, _ = record(times, "strip_spmv", k_ms, p_ms,
+                     need_bytes(csr.n_non_zero_entries(), csr.shape),
+                     2 * csr.n_non_zero_entries(), lib)
+    per = note_steps(times, "strip_spmv", per_step(
+        lambda: ks.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32)[
+            "strip_spmv"], "PCG(Jacobi) iteration, FEM StripELL")
     kb = ks.strip_kernel_bytes(st) / 1e6
     d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "strip_spmv_kernel",
                      lambda: ks.LAUNCHES["strip_spmv"]) / 1e3
     say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call ({kb / k_ms:.1f} "
         f"GB/s of {kb:.1f} MB kernel bytes; {csr.n_non_zero_entries() / k_ms / 1e6:.3f} "
         f"Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device ({kb / d_ms:.1f} GB/s, "
-        f"profiler); plain {p_ms:.4f} ms ({kb / p_ms:.1f} GB/s) runs {p_runs}")
+        f"profiler); plain {p_ms:.4f} ms ({kb / p_ms:.1f} GB/s) runs {p_runs}; bound "
+        f"{b_ms:.4f} ms; torch.mv on the CSR {lib} ms; launches per PCG iteration {per}")
     plain = lambda v: ks.strip_spmv_ref(st, v)  # noqa: E731
     runs = [cg_iters_per_s(plain, b, 64, Mj), cg_iters_per_s(st, b, 256, Mj),
             cg_iters_per_s(st, b, 256, Mj), cg_iters_per_s(plain, b, 64, Mj)]
@@ -777,25 +914,49 @@ def route_phases(dev, g, times, launches):
     # 16 -----------------------------------------------------------------------
     mb = rs.spmv_traffic_bytes() / 1e6
     staging = kr.route_gather(rs, x)
+    # each half's own bytes: the gather reads the products' tables and x and
+    # writes the staging buffer, the reduce reads it back with its tables
+    staging_b = kr.staging_rows(rs) * 128 * 4
+    nnz = csr.n_non_zero_entries()
+    layout_bytes = {"route_gather": nbytes(rs.a_vals, rs.a_lidx, rs.a_win, rs.p1, rs.m1, rs.p2,
+                                           rs.p3, rs.touch) + n * 4 + staging_b,
+                    "route_reduce": staging_b + nbytes(rs.q1, rs.q2, rs.q3, rs.lpos, rs.ppos,
+                                                       rs.pmask, rs.segmask, rs.wrow) + n * 4}
+    # what each half needs: the gather reads each entry's value and column
+    # and x, and writes one product per entry; the reduce reads the products
+    # and the row pointers and writes y
+    half_bytes = {"route_gather": nnz * (4 + 4) + n * 4 + nnz * 4,
+                  "route_reduce": nnz * 4 + (n + 1) * 4 + n * 4}
     for name, kern, plain, arg in (("route_gather", kr.route_gather, kr.route_gather_ref, x),
                                    ("route_reduce", kr.route_reduce, kr.route_reduce_ref,
                                     staging)):
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(rs, arg), lambda: plain(rs, arg), 20)
-        times[name] = (k_ms, p_ms)
+        b_ms, _ = record(times, name, k_ms, p_ms, half_bytes[name], nnz, None)
         d_ms = device_us(lambda: kern(rs, arg), 20, f"{name}_kernel",
                          lambda: kr.LAUNCHES[name]) / 1e3
         say("16 times", f"{name} circuit f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
-            f"of it {d_ms:.4f} ms on the device (profiler); plain {p_ms:.4f} ms runs {p_runs}")
+            f"of it {d_ms:.4f} ms on the device (profiler); plain {p_ms:.4f} ms runs {p_runs}; "
+            f"bound {b_ms:.4f} ms of {half_bytes[name]} bytes needed; "
+            f"{layout_bytes[name] / 1e6 / k_ms:.1f} GB/s of the layout's "
+            f"{layout_bytes[name]} bytes")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kr.route_spmv(rs, x),
                                            lambda: kr.route_spmv_ref(rs, x), 20)
     d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_",
                      lambda: sum(kr.LAUNCHES.values())) / 1e3
     c_ms = cuda_ms(lambda: tsm.spmv(csr, x), 20)
-    nnz = csr.n_non_zero_entries()
+    A_lib = torch_csr(csr)
+    lib = library_ms(lambda: torch.mv(A_lib, x), 20)
+    del A_lib
     say("16 times", f"route spmv circuit f32: kernels {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
         f"GB/s of {mb:.1f} MB spmv_traffic_bytes; {nnz / k_ms / 1e6:.3f} Gnnz/s) runs "
         f"{k_runs}, of it {d_ms:.4f} ms on the device in the two kernels ({mb / d_ms:.1f} "
-        f"GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; CSR stream path {c_ms:.4f} ms")
+        f"GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; CSR stream path {c_ms:.4f} ms; "
+        f"torch.mv on the CSR (the pair's yardstick) {lib} ms")
+    per = per_step(lambda: kr.LAUNCHES,
+                   lambda j: solvers.bicgstab(rs, b, tol=0.0, maxiter=j), 32)
+    for name in kr.LAUNCHES:
+        note_steps(times, name, per[name], "BiCGStab iteration, circuit RouteStream")
+    say("16 times", f"route launches per BiCGStab iteration {per}")
     plain = lambda v: kr.route_spmv_ref(rs, v)  # noqa: E731
     runs = [bicgstab_iters_per_s(plain, b, 32), bicgstab_iters_per_s(rs, b, 128),
             bicgstab_iters_per_s(rs, b, 128), bicgstab_iters_per_s(plain, b, 32)]
@@ -1055,19 +1216,32 @@ def spmm_phases(dev, g, times, launches):
     useful = 2 * nnz * m_rhs
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksp.bsr_spmm(bsr, B),
                                            lambda: ksp.bsr_spmm_ref(bsr, B), 5)
-    times["bsr_spmm"] = (k_ms, p_ms)
+    A_lib = torch_csr(csr)
+    lib_mm = library_ms(lambda: torch.sparse.mm(A_lib, B), 5)
+    bsr_layout = nbytes(bsr.blocks, bsr.block_rows, bsr.block_cols) + 2 * n * m_rhs * 4
+    b_ms, _ = record(times, "bsr_spmm", k_ms, p_ms, need_bytes(nnz, csr.shape, m_rhs),
+                     useful, lib_mm)
+    note_steps(times, "bsr_spmm", per_step(
+        lambda: ksp.LAUNCHES, lambda j: [tsm.spmm(bsr, B) for _ in range(j)], 1)["bsr_spmm"],
+        "spmm(BSR, B) product")
     d_ms = device_us(lambda: ksp.bsr_spmm(bsr, B), 5, "bsr_spmm_kernel",
                      lambda: ksp.LAUNCHES["bsr_spmm"]) / 1e3
     say("20 times", f"bsr spmm fem 512x128 m=128 f32: kernel {k_ms:.4f} ms per call runs "
         f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler): {stored / d_ms / 1e9:.3f} "
         f"Tflop/s of the stored blocks, {useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain "
         f"{p_ms:.4f} ms runs {p_runs} ({stored / p_ms / 1e9:.3f} and "
-        f"{useful / p_ms / 1e9:.4f} Tflop/s)")
+        f"{useful / p_ms / 1e9:.4f} Tflop/s); bound {b_ms:.4f} ms; torch.sparse.mm on the "
+        f"CSR {lib_mm} ms; {bsr_layout / 1e6 / k_ms:.1f} GB/s of the layout's {bsr_layout} "
+        "bytes")
     del bsr, Y_bsr
     mb = pk.spmv_traffic_bytes() / 1e6
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmv(pk, x),
                                            lambda: ksl.slab_pack_spmv_ref(pk, x), 20)
-    times["slab_spmv"] = (k_ms, p_ms)
+    lib = library_ms(lambda: torch.mv(A_lib, x), 20)
+    b_ms, _ = record(times, "slab_spmv", k_ms, p_ms, need_bytes(nnz, csr.shape), 2 * nnz, lib)
+    per_v = note_steps(times, "slab_spmv", per_step(
+        lambda: ksl.LAUNCHES, lambda j: [tsm.spmv(pk, x) for _ in range(j)], 1)["slab_spmv"],
+        "spmv(SlabPack, x) product")
     d_ms = device_us(lambda: ksl.slab_pack_spmv(pk, x), 20, "slab_spmv_kernel",
                      lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
     st = csr.to_strip()
@@ -1075,21 +1249,275 @@ def spmm_phases(dev, g, times, launches):
     say("20 times", f"SlabPack spmv fem f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
         f"GB/s of {mb:.1f} MB spmv_traffic_bytes) runs {k_runs}, of it {d_ms:.4f} ms on the "
         f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; "
-        f"StripELL kernel on the same operator {s_ms:.4f} ms")
+        f"StripELL kernel on the same operator {s_ms:.4f} ms; bound {b_ms:.4f} ms; torch.mv "
+        f"on the CSR {lib} ms; launches per product {per_v}")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_spmv(sl, x),
                                            lambda: ksl.slab_spmv_ref(sl, x), 20)
     m_ms = cuda_ms(lambda: ksl.slab_spmm(sl, B), 3)
+    bv_ms, _ = bound_ms(need_bytes(nnz, csr.shape), 2 * nnz)
+    bm_ms, _ = bound_ms(need_bytes(nnz, csr.shape, m_rhs), useful)
     say("20 times", f"SlabELL fem f32: spmv kernel {k_ms:.4f} ms per call runs {k_runs}, "
-        f"plain {p_ms:.4f} ms runs {p_runs}; spmm m=128 kernel {m_ms:.4f} ms per call")
+        f"plain {p_ms:.4f} ms runs {p_runs}, bound {bv_ms:.4f} ms; spmm m=128 kernel "
+        f"{m_ms:.4f} ms per call, bound {bm_ms:.4f} ms")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmm(pk, B),
                                            lambda: ksl.slab_pack_spmm_ref(pk, B), 3)
-    times["slab_spmm"] = (k_ms, p_ms)
+    b_ms, _ = record(times, "slab_spmm", k_ms, p_ms, need_bytes(nnz, csr.shape, m_rhs),
+                     useful, lib_mm)
+    per_m = note_steps(times, "slab_spmm", per_step(
+        lambda: ksl.LAUNCHES, lambda j: [tsm.spmm(pk, B) for _ in range(j)], 1)["slab_spmm"],
+        "spmm(SlabPack, B) product")
     d_ms = device_us(lambda: ksl.slab_pack_spmm(pk, B), 3, "slab_spmm_kernel",
                      lambda: ksl.LAUNCHES["slab_spmm"]) / 1e3
     say("20 times", f"SlabPack spmm fem m=128 f32: kernel {k_ms:.4f} ms per call runs "
         f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler), "
-        f"{useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain {p_ms:.4f} ms runs {p_runs}")
+        f"{useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain {p_ms:.4f} ms runs {p_runs}; "
+        f"bound {b_ms:.4f} ms; torch.sparse.mm on the CSR {lib_mm} ms; launches per product "
+        f"{per_m}")
     say("20 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+
+def well_cases():
+    """(label, scipy matrix, k_tile) for the WELL kernel against its plain
+    version: tests/test_well.py's matrices, k_tile = 4 overflow tiles, a
+    stored zero and nnz = 0."""
+    rng = np.random.default_rng(0)
+    rand = lambda r, c, d: sp.random(r, c, density=d, random_state=rng,  # noqa: E731
+                                     format="csr", dtype=np.float32)
+    cases = [("random 300² 5%", rand(300, 300, 0.05), None),
+             ("wide 64x1000", rand(64, 1000, 0.02), None),
+             ("tall 1000x64", rand(1000, 64, 0.02), None),
+             ("empty rows", sp.csr_matrix((np.ones(3, np.float32), ([0, 5, 290], [250, 3, 12])),
+                                          shape=(300, 300)), None)]
+    dense_row = sp.lil_matrix((40, 256), dtype=np.float32)
+    dense_row[7, :] = rng.standard_normal(256)
+    dense_row[3, 5] = 2.5
+    zero = sp.random(200, 300, density=0.04, random_state=7, format="csr", dtype=np.float32)
+    zero.data[[0, 9, 30]] = 0.0                # stored entries whose value is zero
+    return cases + [("dense row", dense_row.tocsr(), None),
+                    ("dense row k_tile=4", dense_row.tocsr(), 4),
+                    ("k_tile=4 overflow 64x128", sp.random(
+                        64, 128, density=0.2, random_state=np.random.default_rng(3),
+                        format="csr", dtype=np.float32), 4),
+                    ("stored zero", zero, None),
+                    ("nnz=0", sp.csr_matrix((50, 70), dtype=np.float32), None)]
+
+
+def stream_cases():
+    """(label, scipy matrix, rb) for the SlabStream kernel against its plain
+    version: tests/test_gell_pack.py's mixed-degree matrices at their rb, a
+    rectangular matrix, an empty one and a stored zero."""
+    zero = mixed_degree(600, 3)
+    zero.data[[0, 5, 77]] = 0.0
+    rect = sp.random(300, 900, 0.02, format="csr", dtype=np.float32,
+                     random_state=np.random.default_rng(4))
+    return [("mixed 2000 rb=256", mixed_degree(2000, 0), 256),
+            ("mixed 1100 rb=128", mixed_degree(1100, 22), 128),
+            ("rectangular 300x900 rb=128", rect, 128),
+            ("rectangular 900x300 rb=256", rect.T.tocsr(), 256),
+            ("empty rb=256", sp.csr_matrix((300, 200), dtype=np.float32), 256),
+            ("stored zero rb=128", zero, 128)]
+
+
+def general_phases(dev, g, times, launches, poisson_csr):
+    """Phases 21–24: the WELL and SlabStream kernels against their plain
+    versions, and the general-matrix path at full size (the circuit operator
+    through WELL, the FEM operator through SlabStream, rmatvec, auto_format).
+    Adds the two kernels' times and main-path launches to ``times`` and
+    ``launches``."""
+    # 21 -----------------------------------------------------------------------
+    worst = {}
+    for label, m, k_tile in well_cases():
+        well = tsm.CSR.from_scipy(m, device=dev).to_well(k_tile=k_tile)
+        check(well.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        xs = torch.randn(m.shape[1], generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            w_dt = well.astype(dt)
+            x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
+            y, y_ref = kw.well_spmv(w_dt, x_dt), kw.well_spmv_ref(w_dt, x_dt)
+            check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
+            errs.append(compare("well_spmv", y, y_ref, TOL[dt]["y"], f"well {label} {dt}"))
+        worst[f"{label} (K {well.k_tile}, {well.n_tiles} tiles)"] = max(errs)
+    torch.cuda.synchronize()
+    say("21 well", "kernel vs plain within tolerance (f32, f64, bf16 values); worst rel err "
+        "per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 22 -----------------------------------------------------------------------
+    worst = {}
+    for label, m, rb in stream_cases():
+        st = tsm.CSR.from_scipy(m, device=dev).to_slab_stream(rb=rb)
+        check(st.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        xs = torch.randn(m.shape[1], generator=g, device=dev)
+        errs = []
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            s_dt = st.astype(dt)
+            x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
+            y, y_ref = ksl.slab_stream_spmv(s_dt, x_dt), ksl.slab_stream_spmv_ref(s_dt, x_dt)
+            check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
+            errs.append(compare("slab_stream_spmv", y, y_ref, TOL[dt]["y"],
+                                f"slab stream {label} {dt}"))
+        worst[f"{label} ({st.n_chunks} chunks)"] = max(errs)
+    torch.cuda.synchronize()
+    say("22 slab stream", "kernel vs plain within tolerance (f32, f64, bf16 values); worst "
+        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+
+    # 23 -----------------------------------------------------------------------
+    host = {}
+    m = (matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr()
+    m.sort_indices()
+    n = m.shape[0]
+    kw.reset_launches()
+    ksl.reset_launches()
+    report = {}
+
+    def solved(label, x_, info, A_csr, b_):
+        rel = true_rel(A_csr, x_, b_)
+        check(bool(info.converged), f"{label} did not converge in {int(info.iterations)}")
+        check(rel <= SOLVE_TRUE_REL, f"{label}: true relative residual {rel:.3e} > {SOLVE_TRUE_REL}")
+        report[label] = (int(info.iterations), rel)
+
+    with tempfile.TemporaryDirectory() as td:
+        mtx, npz = os.path.join(td, "circuit.mtx"), os.path.join(td, "circuit_well.npz")
+        tio.save_mtx(tsm.CSR.from_scipy(m, device="cpu"), mtx)
+        csr = tio.load_mtx(mtx)                      # no device: the current card
+        check(csr.data.device == dev, f"load_mtx without device= gave {csr.data.device}")
+        t0 = time.perf_counter()
+        well = csr.to_well()
+        torch.cuda.synchronize()
+        host["to_well"] = time.perf_counter() - t0
+        checkpoint.save_matrix(npz, well)
+        well2 = checkpoint.load_matrix(npz)          # no device: the current card
+    check(isinstance(well2, tsm.WELL) and well2.vals.device == dev,
+          "load_matrix did not give a WELL on the card")
+    x = torch.randn(n, generator=g, device=dev)
+    y = tsm.spmv(well, x)
+    check(torch.equal(tsm.spmv(well2, x), y), "the reloaded WELL's spmv differs")
+    check(torch.equal(tsm.spmv(csr, x, method="pallas"), y),
+          "spmv(method='pallas') differs from spmv(WELL)")
+    e_csr = compare(None, y, tsm.spmv(csr, x), 1e-5, "circuit spmv WELL kernel vs CSR stream")
+    b = torch.randn(n, generator=g, device=dev)
+    x_bi, info_bi = solvers.bicgstab(well, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    solved("BiCGStab WELL", x_bi, info_bi, csr, b)
+    solved("GMRES(30) WELL", *solvers.gmres(well, b, tol=0.0, rtol=SOLVE_RTOL, restart=30,
+                                            maxiter=3000), csr, b)
+    yt = torch.randn(n, generator=g, device=dev)
+    r = tsm.rmatvec(well, yt)
+    e_rmv = compare(None, r.cpu(), torch.from_numpy(m.T.astype(np.float64)
+                                                    @ yt.double().cpu().numpy()),
+                    1e-5, "circuit rmatvec vs scipy Aᵀy")
+
+    rows, cols, vals, nf, _ = fem_triplets()
+    fcsr = tsm.CSR.from_host_coo(rows, cols, vals, (nf, nf), device=dev)
+    del rows, cols, vals
+    t0 = time.perf_counter()
+    st = fcsr.to_slab_stream()
+    torch.cuda.synchronize()
+    host["to_slab_stream"] = time.perf_counter() - t0
+    xf = torch.randn(nf, generator=g, device=dev)
+    yf = tsm.spmv(st, xf)
+    e_strip = compare(None, yf, tsm.spmv(fcsr.to_strip(), xf), 1e-5,
+                      "fem spmv SlabStream kernel vs strip kernel")
+    e_fcsr = compare(None, yf, tsm.spmv(fcsr, xf), 1e-5, "fem spmv SlabStream kernel vs CSR")
+    bf = torch.randn(nf, generator=g, device=dev)
+    Mj = solvers.JacobiPreconditioner.from_matrix(fcsr)
+    x_pcg, info_pcg = solvers.cg(st, bf, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mj)
+    solved("PCG(Jacobi) SlabStream", x_pcg, info_pcg, fcsr, bf)
+    with tempfile.TemporaryDirectory() as td:
+        npz = os.path.join(td, "fem_slab_stream.npz")
+        checkpoint.save_matrix(npz, st)
+        st2 = checkpoint.load_matrix(npz)
+    check(isinstance(st2, tsm.SlabStream) and torch.equal(tsm.spmv(st2, xf), yf),
+          "the reloaded SlabStream's spmv differs")
+    torch.cuda.synchronize()
+    launches["well_spmv"] = kw.LAUNCHES["well_spmv"]
+    launches["slab_stream_spmv"] = ksl.LAUNCHES["slab_stream_spmv"]
+    for name in ("well_spmv", "slab_stream_spmv"):
+        check(launches[name] > 0, f"the general path launched {name} no time")
+
+    picks = {}
+    for label, A_, want in (("Poisson 2048²", poisson_csr, "DIA"), ("FEM", fcsr, "StripELL"),
+                            ("circuit", csr, "RouteStream")):
+        t0 = time.perf_counter()
+        got = type(tsm.auto_format(A_)).__name__
+        picks[label] = (got, time.perf_counter() - t0)
+        check(got == want, f"auto_format picked {got} for the {label} operator, not {want}")
+
+    full = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        w_dt, s_dt = well.astype(dt), st.astype(dt)
+        full[f"well {dt}"] = compare("well_spmv", kw.well_spmv(w_dt, x.to(dt)),
+                                     kw.well_spmv_ref(w_dt, x.to(dt)), tol, f"circuit WELL {dt}")
+        full[f"slab stream {dt}"] = compare(
+            "slab_stream_spmv", ksl.slab_stream_spmv(s_dt, xf.to(dt)),
+            ksl.slab_stream_spmv_ref(s_dt, xf.to(dt)), tol, f"fem SlabStream {dt}")
+        del w_dt, s_dt
+    say("23 general path", f"circuit_scatter·2e-2: {n} rows, {csr.n_non_zero_entries()} "
+        f"entries, load_mtx and load_matrix without device= on {csr.data.device}; WELL: "
+        f"{well.n_tiles} tiles, K {well.k_tile}, nse {well.nse}, fill {well.fill_ratio():.4f}, "
+        f"spmv_traffic_bytes {well.spmv_traffic_bytes()}; spmv vs CSR {e_csr:.2e}, "
+        f"method='pallas' and the reloaded WELL bitwise equal; rmatvec vs scipy {e_rmv:.2e}. "
+        f"FEM (phase 10's SPD operator): {nf} rows, {fcsr.n_non_zero_entries()} entries; "
+        f"SlabStream: {st.n_chunks} chunks, nse {st.nse}, fill {st.fill_ratio():.4f}, "
+        f"spmv_traffic_bytes {st.spmv_traffic_bytes()}; spmv vs strip {e_strip:.2e}, vs CSR "
+        f"{e_fcsr:.2e}; reloaded SlabStream bitwise equal. Kernels vs plain at full size: "
+        + "; ".join(f"{k} {v:.2e}" for k, v in full.items())
+        + f". Solves to rtol {SOLVE_RTOL} (iterations, true relative residual f64): "
+        + "; ".join(f"{k} {it} {rr:.3e}" for k, (it, rr) in report.items())
+        + "; auto_format: " + "; ".join(f"{k} → {v} ({t:.3f} s)" for k, (v, t) in picks.items())
+        + f"; launches {({k: launches[k] for k in ('well_spmv', 'slab_stream_spmv')})}")
+
+    check(torch.equal(tsm.spmv(well, x), y), "WELL spmv rerun differs")
+    check(torch.equal(tsm.spmv(st, xf), yf), "SlabStream spmv rerun differs")
+    check(torch.equal(tsm.rmatvec(well, yt), r), "rmatvec rerun differs")
+    x_bi2, info_bi2 = solvers.bicgstab(well, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    check(torch.equal(x_bi2, x_bi) and torch.equal(info_bi2.residual_norm,
+                                                   info_bi.residual_norm),
+          "BiCGStab over WELL rerun differs")
+    say("23 determinism", "WELL spmv, SlabStream spmv, rmatvec and BiCGStab over WELL rerun "
+        "bitwise equal")
+
+    # 24 -----------------------------------------------------------------------
+    for name, mat, xv, A_csr, kern, plain, nnz_ in (
+            ("well_spmv", well, x, csr, kw.well_spmv, kw.well_spmv_ref,
+             csr.n_non_zero_entries()),
+            ("slab_stream_spmv", st, xf, fcsr, ksl.slab_stream_spmv, ksl.slab_stream_spmv_ref,
+             fcsr.n_non_zero_entries())):
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(mat, xv), lambda: plain(mat, xv), 20)
+        d_ms = device_us(lambda: kern(mat, xv), 20, f"{name}_kernel",
+                         lambda: {**kw.LAUNCHES, **ksl.LAUNCHES}[name]) / 1e3
+        A_lib = torch_csr(A_csr)
+        lib = library_ms(lambda: torch.mv(A_lib, xv), 20)
+        del A_lib
+        mb = mat.spmv_traffic_bytes() / 1e6
+        b_ms, by = record(times, name, k_ms, p_ms, need_bytes(nnz_, A_csr.shape), 2 * nnz_,
+                          lib)
+        c_ms = cuda_ms(lambda: tsm.spmv(A_csr, xv), 20)
+        say("24 times", f"{name} f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} GB/s of "
+            f"{mb:.1f} MB spmv_traffic_bytes; {nnz_ / k_ms / 1e6:.3f} Gnnz/s) runs {k_runs}, of "
+            f"it {d_ms:.4f} ms on the device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} "
+            f"ms runs {p_runs}; bound {b_ms:.4f} ms ({by}); torch.mv on the CSR {lib} ms; the "
+            f"port's CSR stream path {c_ms:.4f} ms")
+    plain_w = lambda v: kw.well_spmv_ref(well, v)  # noqa: E731
+    runs = [bicgstab_iters_per_s(plain_w, b, 32), bicgstab_iters_per_s(well, b, 128),
+            bicgstab_iters_per_s(well, b, 128), bicgstab_iters_per_s(plain_w, b, 32)]
+    say("24 times", f"BiCGStab f32 circuit WELL: kernel {(runs[1] + runs[2]) / 2:.1f} iters/s "
+        f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
+        f"runs {[runs[0], runs[3]]}")
+    plain_s = lambda v: ksl.slab_stream_spmv_ref(st, v)  # noqa: E731
+    runs = [cg_iters_per_s(plain_s, bf, 64, Mj), cg_iters_per_s(st, bf, 256, Mj),
+            cg_iters_per_s(st, bf, 256, Mj), cg_iters_per_s(plain_s, bf, 64, Mj)]
+    say("24 times", f"PCG(Jacobi) f32 fem SlabStream: kernel {(runs[1] + runs[2]) / 2:.1f} "
+        f"iters/s runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
+        f"runs {[runs[0], runs[3]]}")
+    per_w = note_steps(times, "well_spmv", per_step(
+        lambda: kw.LAUNCHES, lambda j: solvers.bicgstab(well, b, tol=0.0, maxiter=j), 32)[
+            "well_spmv"], "BiCGStab iteration, circuit WELL")
+    per_s = note_steps(times, "slab_stream_spmv", per_step(
+        lambda: ksl.LAUNCHES, lambda j: solvers.cg(st, bf, tol=0.0, maxiter=j, M=Mj), 32)[
+            "slab_stream_spmv"], "PCG(Jacobi) iteration, FEM SlabStream")
+    say("24 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items())
+        + f"; launches per iteration: well_spmv per BiCGStab {per_w}, slab_stream_spmv per "
+        f"PCG {per_s}")
 
 
 def main():
@@ -1213,11 +1641,16 @@ def main():
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv(band, xb),
                                            lambda: kd.dia_spmv_ref(band, xb), 20)
     gbs = 7 * nb * 4 / 1e6
-    times["dia_spmv"] = (k_ms, p_ms)
+    band_lib = torch_csr(band.to_csr())
+    lib = library_ms(lambda: torch.mv(band_lib, xb), 20)
+    # the band's need: its diagonals carry no column index, so 5 values a row
+    # (fewer bytes than the CSR of need_bytes), x and y
+    b_ms, _ = record(times, "dia_spmv", k_ms, p_ms, 7 * nb * 4, 2 * 5 * nb, lib)
     say("7 times", f"spmv 2^24-row band [-4096,-1,0,1,4096] f32: kernel {k_ms:.4f} ms "
         f"({gbs / k_ms:.1f} GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms "
-        f"({gbs / p_ms:.1f} GB/s) runs {p_runs}")
-    del band, xb
+        f"({gbs / p_ms:.1f} GB/s) runs {p_runs}; bound {b_ms:.4f} ms; torch.mv on the "
+        f"CSR {lib} ms")
+    del band, xb, band_lib
 
     xd = torch.randn(m, generator=g, device=dev)
     yk, dk = kd.dia_spmv_dot(dia, xd)
@@ -1226,9 +1659,10 @@ def main():
     compare("dia_spmv_dot", dk, dp, 1e-4, "dot 2048²")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv_dot(dia, xd),
                                            lambda: kd.dia_spmv_dot_ref(dia, xd), 50)
-    times["dia_spmv_dot"] = (k_ms, p_ms)
+    b_ms, _ = record(times, "dia_spmv_dot", k_ms, p_ms, 7 * m * 4, 2 * 5 * m + 2 * m, None)
     say("7 times", f"spmv_dot 2048² f32: kernel {k_ms:.4f} ms ({7 * m * 4 / 1e6 / k_ms:.1f} "
-        f"GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms runs {p_runs}")
+        f"GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms runs {p_runs}; bound "
+        f"{b_ms:.4f} ms")
 
     nc, kc = 10_000, 1024
     chain = averaging_dia(nc, nc, (-100, -1, 0, 1, 100), torch.float32, g)
@@ -1237,11 +1671,23 @@ def main():
             kd.dia_spmv_chain_ref(chain, xc, kc), 1e-5, "chain 10^4 k=1024")
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv_chain(chain, xc, kc),
                                            lambda: kd.dia_spmv_chain_ref(chain, xc, kc), 5)
-    times["dia_spmv_chain"] = (k_ms, p_ms)
+    b_ms, by = record(times, "dia_spmv_chain", k_ms, p_ms, 7 * nc * 4, 2 * 5 * nc * kc, None)
     say("7 times", f"spmv_chain 10^4 rows [-100,-1,0,1,100] k=1024 f32: kernel {k_ms:.4f} ms "
         f"({k_ms / kc * 1e3:.3f} us/step) runs {k_runs}; plain {p_ms:.4f} ms "
-        f"({p_ms / kc * 1e3:.3f} us/step) runs {p_runs}")
+        f"({p_ms / kc * 1e3:.3f} us/step) runs {p_runs}; bound {b_ms:.4f} ms ({by})")
 
+    # CG's loop takes the fused SpMV + dot; the plain SpMV runs once before
+    # it, so the SpMV's step is a product of spmv
+    per = per_step(lambda: kd.LAUNCHES, lambda j: solvers.cg(dia, b, tol=0.0, maxiter=j), 32)
+    note_steps(times, "dia_spmv_dot", per["dia_spmv_dot"], "CG iteration, 2048² Poisson DIA")
+    per_v = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv(dia, x) for _ in range(j)], 1)
+    note_steps(times, "dia_spmv", per_v["dia_spmv"], "spmv(DIA, x) product, 2048² Poisson")
+    per_c = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv_chain(dia, x, 4)
+                                                     for _ in range(j)], 1)
+    note_steps(times, "dia_spmv_chain", per_c["dia_spmv_chain"],
+               "spmv_chain(DIA, x, 4) product, 2048² Poisson")
+    say("7 times", f"DIA launches per CG iteration {per}; per spmv {per_v}; per "
+        f"spmv_chain(k=4) {per_c}")
     for label, A_, b_, iters in (("512²", dia5, b5, 640), ("2048²", dia, b, 320)):
         plain = (lambda A__: (lambda v: kd.dia_spmv_ref(A__, v)))(A_)
         runs = [cg_iters_per_s(plain, b_, iters), cg_iters_per_s(A_, b_, iters),
@@ -1253,11 +1699,11 @@ def main():
     fem_phases(dev, g, times, launches)
     route_phases(dev, g, times, launches)
     spmm_phases(dev, g, times, launches)
+    general_phases(dev, g, times, launches, csr)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": MAX_ABS[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": launches[name], "max_abs_err": MAX_ABS[name], **times[name]}
         for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -2,34 +2,39 @@
 
 Ported so far: host assembly (``SparseBuilder``) or MatrixMarket input
 (``io.load_mtx``) → freeze to ``CSR`` → freeze to ``DIA`` (banded),
-``StripELL``, ``SlabELL`` or ``SlabPack`` (bounded-span scattered, the FEM
-class), ``RouteStream`` (globally scattered, the circuit class) or ``ELL``
-→ ``spmv`` / ``spmv_dot`` / ``spmv_chain`` → the solvers (CG/PCG, BiCGStab, GMRES, Chebyshev, Jacobi,
-mixed-precision refinement) and the Jacobi / block-Jacobi preconditioners;
-checkpoints of matrices and solves in the JAX package's file format
-(``checkpoint``); ``spmm`` (``A @ B``) over ``BSR``, the slab formats,
-DIA, ELL and the CSR/COO stream.  Formats are frozen dataclasses of tensors
-on an explicit device; ops and solvers are plain functions.  The DIA,
-StripELL, RouteStream, BSR and slab kernels are hand-written CUDA for
-Hopper (``csrc/``), built at first use; on CPU tensors each takes its plain
-PyTorch version.
+``StripELL``, ``SlabELL``, ``SlabPack`` or ``SlabStream`` (bounded-span
+scattered, the FEM class), ``RouteStream`` (globally scattered, the circuit
+class), ``WELL`` (windowed ELL, the general-matrix format), ``ELL``, ``SELL``
+or ``GELL``, or let ``auto_format`` choose → ``spmv`` / ``spmv_dot`` /
+``spmv_chain`` / ``rmatvec`` → the solvers (CG/PCG, BiCGStab, GMRES,
+Chebyshev, Jacobi, mixed-precision refinement) and the Jacobi / block-Jacobi
+preconditioners; checkpoints of matrices and solves in the JAX package's
+file format (``checkpoint``); ``spmm`` (``A @ B``) over ``BSR``, the slab
+formats, DIA, GELL, ELL and the CSR/COO stream.  Formats are frozen
+dataclasses of tensors on one device: an entry point that builds tensors
+puts them on the current CUDA card unless given ``device=`` (``"cpu"`` asks
+for the CPU), and raises where torch finds no card.  Ops and solvers are
+plain functions.  The DIA, StripELL, RouteStream, BSR, slab, SlabStream and
+WELL kernels are hand-written CUDA for Hopper (``csrc/``), built at first
+use; on CPU tensors each takes its plain PyTorch version.
 This package imports neither jax nor ``sparsemat_tpu``.
 """
 
 from . import checkpoint, formats, io, ops, solvers, vectors
 from .builder import SparseBuilder
-from .formats import (BSR, COO, CSR, DIA, ELL, RouteStream, SlabELL, SlabPack,
-                      SparseFormat, StripELL)
-from .ops import spmm, spmv, spmv_chain, spmv_dot
+from .formats import (BSR, COO, CSR, DIA, ELL, GELL, SELL, WELL, RouteStream, SlabELL,
+                      SlabPack, SlabStream, SparseFormat, StripELL, auto_format)
+from .ops import rmatvec, spmm, spmv, spmv_chain, spmv_dot
 from .solvers import GMRES, BiCGStab, ConjugateGradient, Jacobi, SolveInfo
 from .types import DEFAULT_INDEX_DTYPE
 from .vectors import DenseVec, SparseVec, inner_prod, norm, norm_squared
 
 __all__ = [
-    "COO", "CSR", "DIA", "ELL", "BSR", "RouteStream", "StripELL", "SlabELL", "SlabPack",
-    "SparseFormat", "SparseBuilder",
+    "COO", "CSR", "DIA", "ELL", "SELL", "BSR", "GELL", "RouteStream", "StripELL",
+    "SlabELL", "SlabPack", "SlabStream", "WELL", "SparseFormat", "SparseBuilder",
+    "auto_format",
     "ConjugateGradient", "Jacobi", "BiCGStab", "GMRES", "SolveInfo", "solvers",
-    "spmv", "spmv_dot", "spmv_chain", "spmm",
+    "spmv", "spmv_dot", "spmv_chain", "spmm", "rmatvec",
     "DenseVec", "SparseVec", "inner_prod", "norm", "norm_squared",
     "checkpoint", "formats", "io", "ops", "vectors", "eye", "from_dense",
 ]

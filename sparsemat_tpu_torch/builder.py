@@ -21,7 +21,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from .types import DEFAULT_INDEX_DTYPE, as_torch_dtype, host_dtype
+from .types import DEFAULT_INDEX_DTYPE, as_torch_dtype, host_dtype, resolve_device
 from .vectors import SparseVec
 
 
@@ -319,9 +319,10 @@ class SparseBuilder:
     # -- freeze to device formats --------------------------------------------------
     def to_coo(self, *, pad_to: int | None = None, device=None):
         """Freeze to canonical COO on ``device``.  ``pad_to`` reserves
-        extra (padding) slots."""
+        extra (padding) slots.  ``device`` None: the current CUDA card."""
         from .formats.coo import COO
 
+        device = resolve_device(device)
         rows, cols, vals = self._store.export_insertion()
         order = np.lexsort((cols, rows))
         nr, nc = self.shape
@@ -338,7 +339,9 @@ class SparseBuilder:
                    shape=(nr, nc), canonical=True)
 
     def to_csr(self, *, pad_to: int | None = None, device=None):
-        """Freeze to CSR on ``device`` (host-side sort, one upload)."""
+        """Freeze to CSR on ``device`` (host-side sort, one upload; None:
+        the current CUDA card)."""
+        device = resolve_device(device)
         if pad_to is not None:
             return self.to_coo(pad_to=pad_to, device=device).to_csr()
         from .formats.csr import CSR
@@ -356,9 +359,13 @@ class SparseBuilder:
         return getattr(self, f"to_{format}")(device=device)
 
     def mvp(self, x):
+        """y = A·x on x's device where x is a tensor, else on the current
+        CUDA card."""
         from .ops import spmv
 
-        return spmv(self.to_csr(), torch.as_tensor(x))
+        device = x.device if isinstance(x, torch.Tensor) else resolve_device(None)
+        x = torch.as_tensor(x, device=device)
+        return spmv(self.to_csr(device=device), x)
 
     def todense(self) -> np.ndarray:
         rows, cols, vals = self._store.export_insertion()

@@ -11,14 +11,17 @@ saves.
   "none"}``.  Tensors are the array fields; ints, bools and tuples of ints
   (shape, offsets, block ids) are static.  The version-1 flat layout (one
   header with ``format`` and ``static``, arrays under their field names) is
-  read too.  The port's formats are COO, CSR, DIA, ELL, BSR, StripELL
-  (with its StripPart), RouteStream, SlabELL and SlabPack (its parts and
-  overflow nested); a file holding another format raises ``ValueError``.
-  An absent optional field (BSR ``occ``, SlabELL ``bucket_cnt``, SlabPack
-  ``overflow``) is written as ``none``.  A DIA from the JAX package carries
-  ``tdata`` (its TPU lane-packed copy) and a BSR ``chunks`` (its TPU call
-  ranges): each is read and dropped, and the port writes ``tdata`` as
-  ``none``.
+  read too.  The port's formats are COO, CSR, DIA, ELL, SELL, BSR,
+  StripELL (with its StripPart), RouteStream, SlabELL, SlabPack (its parts
+  and overflow nested), SlabStream, WELL and GELL (its ELL levels nested);
+  a file holding another format raises ``ValueError``.  An absent optional
+  field (BSR ``occ``, SlabELL ``bucket_cnt``, SlabPack ``overflow``, WELL
+  ``row_cnt``) is written as ``none``.  A DIA from the JAX package carries
+  ``tdata`` (its TPU lane-packed copy), a BSR and a WELL ``chunks`` (their
+  TPU call ranges): each is read and dropped.  The port writes ``tdata`` as
+  ``none`` and a WELL's ``chunks`` as the JAX freeze computes them
+  (``formats.well.chunk_bounds``), so the JAX package's TPU kernel runs on
+  a WELL the port saved.
 * ``save_solve_state`` / ``load_solve_state`` / ``resume``: (x, iterations,
   residual norm); a resumed solve is a fresh solve from the checkpointed
   iterate, its iteration count offset by the checkpoint's.
@@ -39,15 +42,24 @@ from .formats.coo import COO
 from .formats.csr import CSR
 from .formats.dia import DIA
 from .formats.ell import ELL
+from .formats.gell import GELL
 from .formats.route import RouteStream
-from .formats.slab import SlabELL, SlabPack
+from .formats.sell import SELL
+from .formats.slab import SlabELL, SlabPack, SlabStream
 from .formats.strip import StripELL, StripPart
+from .formats.well import WELL, chunk_bounds
+from .types import resolve_device
 
-_FORMATS = {cls.__name__: cls for cls in (COO, CSR, DIA, ELL, BSR, StripELL, StripPart,
-                                          RouteStream, SlabELL, SlabPack)}
-#: fields (array or static) the JAX package writes and the port has no use
-#: for: DIA's lane-packed copy and BSR's TPU call chunks
-_DROPPED = {"DIA": ("tdata",), "BSR": ("chunks",)}
+_FORMATS = {cls.__name__: cls for cls in (COO, CSR, DIA, ELL, SELL, BSR, StripELL, StripPart,
+                                          RouteStream, SlabELL, SlabPack, SlabStream, WELL,
+                                          GELL)}
+#: fields the JAX package writes and the port has no use for, read and
+#: dropped on load.  On save each is written by its entry: None writes an
+#: absent array field (DIA's lane-packed copy, BSR's TPU call chunks); a
+#: function writes the static the JAX constructor requires (WELL's TPU call
+#: chunks, as the JAX freeze computes them)
+_DROPPED = {"DIA": {"tdata": None}, "BSR": {"chunks": None},
+            "WELL": {"chunks": lambda m: chunk_bounds(m.host("tile_rows"), m.n_row_blocks)}}
 
 
 def _format_class(name: str):
@@ -96,8 +108,11 @@ def _flatten_format(mat, prefix: str, arrays: dict) -> dict:
             desc["fields"][f.name] = _flatten_field(v, prefix + f.name, arrays)
         else:
             desc["static"][f.name] = v
-    for name_ in _DROPPED.get(name, ()):
-        desc["fields"][name_] = {"kind": "none"}
+    for name_, write in _DROPPED.get(name, {}).items():
+        if write is None:
+            desc["fields"][name_] = {"kind": "none"}
+        else:
+            desc["static"][name_] = write(mat)
     return desc
 
 
@@ -127,7 +142,7 @@ def _unflatten_field(node, z, device, host: dict, name: str):
 def _unflatten_format(desc: dict, z, device):
     name = desc["format"]
     cls = _format_class(name)
-    dropped = _DROPPED.get(name, ())
+    dropped = _DROPPED.get(name, {})
     kwargs = {k: _untuple(v) for k, v in desc["static"].items() if k not in dropped}
     host = {}
     for fname, node in desc["fields"].items():
@@ -150,7 +165,8 @@ def save_matrix(path: str, mat) -> None:
 
 def load_matrix(path: str, *, device=None):
     """A matrix saved by either package's ``save_matrix``, uploaded to
-    ``device`` (host arrays cached)."""
+    ``device`` (None: the current CUDA card; host arrays cached)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         header = json.loads(bytes(z["__header__"]).decode())
         if "root" in header:

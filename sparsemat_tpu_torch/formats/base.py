@@ -96,6 +96,26 @@ class SparseFormat:
         return SlabPack.from_csr(self.to_csr(), rb=rb or SLAB_ROW_BLOCK,
                                  n_classes=n_classes)
 
+    def to_slab_stream(self, rb: int | None = None):
+        from .slab import SLAB_ROW_BLOCK, SlabStream
+
+        return SlabStream.from_csr(self.to_csr(), rb=rb or SLAB_ROW_BLOCK)
+
+    def to_well(self, k_tile: int | None = None):
+        from .well import WELL
+
+        return WELL.from_csr(self.to_csr(), k_tile=k_tile)
+
+    def to_sell(self, slice_height: int = 8):
+        from .sell import SELL
+
+        return SELL.from_csr(self.to_csr(), slice_height=slice_height)
+
+    def to_gell(self, k0: int | None = None):
+        from .gell import GELL
+
+        return GELL.from_csr(self.to_csr(), k0=k0)
+
     @property
     def n_rows(self) -> int:
         return self.shape[0]

@@ -9,7 +9,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..types import DEFAULT_INDEX_DTYPE, as_torch_dtype
+from ..types import DEFAULT_INDEX_DTYPE, as_torch_dtype, resolve_device
 from .base import SparseFormat, dedup_sorted_coo, rows_to_indptr, sort_coo, to_device
 
 
@@ -32,6 +32,11 @@ class COO(SparseFormat):
     @classmethod
     def from_arrays(cls, rows, cols, vals, shape=None, *,
                     index_dtype=DEFAULT_INDEX_DTYPE, canonical=False, device=None):
+        """From parallel arrays.  Tensors stay on their device unless
+        ``device`` names another; host (numpy) inputs go to ``device``
+        (None: the current CUDA card)."""
+        if device is None and not isinstance(rows, torch.Tensor):
+            device = resolve_device(None)
         rows = torch.as_tensor(rows, device=device)
         cols = torch.as_tensor(cols, device=device)
         vals = torch.as_tensor(vals, device=device)
@@ -48,6 +53,7 @@ class COO(SparseFormat):
     @classmethod
     def from_dense(cls, mat, *, index_dtype=DEFAULT_INDEX_DTYPE, device=None):
         mat = np.asarray(mat)
+        device = resolve_device(device)
         r, c = np.nonzero(mat)
         return cls(rows=to_device(r, index_dtype, device),
                    cols=to_device(c, index_dtype, device),
@@ -57,6 +63,7 @@ class COO(SparseFormat):
     @classmethod
     def eye(cls, dim: int, *, dtype=torch.float32,
             index_dtype=DEFAULT_INDEX_DTYPE, device=None):
+        device = resolve_device(device)
         idx = torch.arange(dim, dtype=as_torch_dtype(index_dtype), device=device)
         return cls(rows=idx, cols=idx,
                    vals=torch.ones(dim, dtype=as_torch_dtype(dtype), device=device),

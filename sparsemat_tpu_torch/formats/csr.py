@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..types import DEFAULT_INDEX_DTYPE, as_torch_dtype, host_dtype
+from ..types import DEFAULT_INDEX_DTYPE, as_torch_dtype, host_dtype, resolve_device
 from .base import SparseFormat, indptr_to_rows, to_device
 
 
@@ -44,11 +44,13 @@ class CSR(SparseFormat):
     @classmethod
     def from_arrays(cls, indptr, indices, data, shape, *, device=None) -> "CSR":
         """From CSR arrays.  Host (numpy) inputs are checked and expanded on
-        the host and uploaded once; tensors are taken as they are."""
+        the host and uploaded once to ``device`` (None: the current CUDA
+        card); tensors are taken as they are."""
         if isinstance(indptr, torch.Tensor):
             return cls(indptr=indptr, indices=indices, data=data,
                        row_ids=indptr_to_rows(indptr, indices.shape[0]),
                        shape=tuple(shape))
+        device = resolve_device(device)
         indptr = np.asarray(indptr)
         indices = np.asarray(indices)
         data = np.asarray(data)
@@ -73,7 +75,9 @@ class CSR(SparseFormat):
                       index_dtype=DEFAULT_INDEX_DTYPE, sum_duplicates=True,
                       device=None) -> "CSR":
         """Canonical CSR from host (numpy) triplets, built entirely on the
-        host and uploaded once — the builder's and loaders' freeze path."""
+        host and uploaded once to ``device`` (None: the current CUDA card) —
+        the builder's and loaders' freeze path."""
+        device = resolve_device(device)
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         if rows.dtype.kind not in "iu":
@@ -134,6 +138,7 @@ class CSR(SparseFormat):
     def eye(cls, dim: int, *, dtype=torch.float32,
             index_dtype=DEFAULT_INDEX_DTYPE, device=None) -> "CSR":
         idt = as_torch_dtype(index_dtype)
+        device = resolve_device(device)
         idx = torch.arange(dim, dtype=idt, device=device)
         return cls(indptr=torch.arange(dim + 1, dtype=idt, device=device),
                    indices=idx,

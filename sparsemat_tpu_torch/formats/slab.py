@@ -1,6 +1,6 @@
-"""SlabELL and SlabPack — slab-windowed, window-bucketed ELL for scattered
-rows of bounded column span (counterpart of ``sparsemat_tpu/formats/slab.py``;
-its ``SlabStream`` is not ported yet).
+"""SlabELL, SlabPack and SlabStream — slab-windowed, window-bucketed ELL for
+scattered rows of bounded column span (counterpart of
+``sparsemat_tpu/formats/slab.py``).
 
 A **SlabELL** cuts the rows into blocks of ``rb`` (a multiple of 128).  The
 entries of a block are regrouped by the 128-column window they fall in,
@@ -19,6 +19,10 @@ maps each part's blocks to the global ones, and each part's bucket heights
 are lowered where the spilled entries cost less than the padding they
 save.  The spilled entries are refrozen exactly (no further spilling) into
 ``overflow``, itself a SlabPack at rb 128, whose product is added back.
+
+A **SlabStream** stores each (row block, window) bucket at its exact height
+rounded to 8, cut into (8 × rb) chunks that form one flat stream tagged
+with each chunk's window and row block.
 
 The layout is the JAX package's, array for array and bit for bit (the
 freeze below is the same host numpy program, uploaded once at the end, its
@@ -453,3 +457,140 @@ class SlabPack(SparseFormat):
         if self.overflow is not None:
             total += self.overflow.spmv_traffic_bytes() - xb - yb
         return int(total + xb + yb)
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class SlabStream(SparseFormat):
+    """The slab layout as one flat stream of (8 × rb) chunks: each (row
+    block, window) bucket at its exact height rounded to 8, cut into
+    8-sublane chunks.  ``vals``/``lidx`` (N, 8, rb), ``lidx`` the column
+    within the chunk's window; ``win_id``/``blk_id`` (N,) int32 window and
+    row block per chunk (chunks in (block, window) order); ``cnt8`` (N, rb)
+    int32 stored entries per (chunk, row): sublane < count marks a stored
+    entry.  The nnz = 0 layout is one zero chunk."""
+
+    vals: torch.Tensor
+    lidx: torch.Tensor
+    win_id: torch.Tensor
+    blk_id: torch.Tensor
+    cnt8: torch.Tensor
+    shape: Tuple[int, int]
+    row_block: int
+
+    @classmethod
+    def from_csr(cls, csr, rb: int = SLAB_ROW_BLOCK) -> "SlabStream":
+        """Host freeze (the JAX package's, step for step).  ``rb`` must be a
+        multiple of 128; the CSR's rows column-sorted (canonical CSR is)."""
+        if rb % WINDOW:
+            raise ValueError(f"rb must be a multiple of {WINDOW}, got {rb}")
+        n_rows, n_cols = csr.shape
+        indptr, indices, data, nnz = _entries(csr)
+        n_win = max(-(-n_cols // WINDOW), 1)
+        if nnz == 0:
+            host = dict(vals=np.zeros((1, SUBLANE, rb), data.dtype),
+                        lidx=np.zeros((1, SUBLANE, rb), np.int32),
+                        win_id=np.zeros((1,), np.int32), blk_id=np.zeros((1,), np.int32),
+                        cnt8=np.zeros((1, rb), np.int32))
+            return cls._upload(host, (n_rows, n_cols), rb, csr)
+
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
+        blk = rows // rb
+        lrow = (rows % rb).astype(np.int64)
+        win = indices // WINDOW
+        rank = _ranks(rows, win, nnz)
+
+        # (block, window) buckets at exact 8-rounded heights → chunk stream
+        key = blk * n_win + win
+        ukey, key_inv = np.unique(key, return_inverse=True)
+        hmax = np.zeros(ukey.shape[0], np.int64)
+        np.maximum.at(hmax, key_inv, rank + 1)
+        n_chunks_per = -(-hmax // SUBLANE)
+        chunk_start = np.concatenate([[0], np.cumsum(n_chunks_per)])
+        n_chunks = int(chunk_start[-1])
+
+        vals_t = np.zeros((n_chunks, SUBLANE, rb), data.dtype)
+        lidx_t = np.zeros((n_chunks, SUBLANE, rb), np.int32)
+        ch = chunk_start[key_inv] + rank // SUBLANE
+        sub = rank % SUBLANE
+        vals_t[ch, sub, lrow] = data
+        lidx_t[ch, sub, lrow] = (indices % WINDOW).astype(np.int32)
+
+        # per-(bucket, row) counts → per-chunk counts clipped to 8
+        kcnt = np.zeros((ukey.shape[0], rb), np.int64)
+        np.add.at(kcnt, (key_inv, lrow), 1)
+        key_of_chunk = np.repeat(np.arange(ukey.shape[0]), n_chunks_per)
+        cl = np.arange(n_chunks) - chunk_start[key_of_chunk]
+        cnt8 = np.clip(kcnt[key_of_chunk] - SUBLANE * cl[:, None], 0, SUBLANE).astype(np.int32)
+        host = dict(vals=vals_t, lidx=lidx_t,
+                    win_id=(ukey % n_win)[key_of_chunk].astype(np.int32),
+                    blk_id=(ukey // n_win)[key_of_chunk].astype(np.int32), cnt8=cnt8)
+        return cls._upload(host, (n_rows, n_cols), rb, csr)
+
+    @classmethod
+    def _upload(cls, host: dict, shape, rb: int, csr) -> "SlabStream":
+        out = cls(vals=to_device(host["vals"], csr.dtype, csr.device),
+                  **{k: to_device(v, None, csr.device) for k, v in host.items() if k != "vals"},
+                  shape=tuple(shape), row_block=rb)
+        return out._stash_host(**host)
+
+    # -- canonical views ------------------------------------------------------
+    def to_coo(self):
+        from .coo import COO
+
+        n_rows = self.shape[0]
+        rb = self.row_block
+        dev = self.vals.device
+        sub = torch.arange(SUBLANE, dtype=torch.int32, device=dev)
+        lane = torch.arange(rb, dtype=torch.int32, device=dev)
+        stored = sub[None, :, None] < self.cnt8[:, None, :]
+        rows = (self.blk_id[:, None, None] * rb + lane[None, None, :]).expand(self.vals.shape)
+        cols = self.win_id[:, None, None] * WINDOW + self.lidx.to(torch.int32)
+        ok = stored & (rows < n_rows)
+        return COO(rows=torch.where(ok, rows, n_rows).reshape(-1),
+                   cols=torch.where(ok, cols, 0).reshape(-1),
+                   vals=torch.where(ok, self.vals, 0).reshape(-1),
+                   shape=self.shape, canonical=False)
+
+    def to_csr(self):
+        return self.to_coo().to_csr()
+
+    # -- structure --------------------------------------------------------------
+    @property
+    def nse(self) -> int:
+        return int(self.vals.numel())
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def n_row_blocks(self) -> int:
+        return max(-(-self.shape[0] // self.row_block), 1)
+
+    @property
+    def index_dtype(self):
+        return torch.int32
+
+    @property
+    def data(self):
+        return self.vals
+
+    def n_non_zero_entries(self) -> int:
+        return int(self.cnt8.sum())
+
+    def scale(self, scalar) -> "SlabStream":
+        return dataclasses.replace(self, vals=self.vals * scalar)
+
+    def fill_ratio(self) -> float:
+        return self.n_non_zero_entries() / max(self.nse, 1)
+
+    def x_windows(self) -> int:
+        return max(-(-self.shape[1] // WINDOW), 1)
+
+    def spmv_traffic_bytes(self) -> int:
+        """The layout's bytes per SpMV, as the sibling formats count: vals,
+        lidx, win_id and blk_id once, x read once and y written once."""
+        total = sum(t.numel() * t.element_size()
+                    for t in (self.vals, self.lidx, self.win_id, self.blk_id))
+        return int(total + self.shape[1] * self.dtype.itemsize
+                   + self.shape[0] * accum_dtype(self.dtype).itemsize)

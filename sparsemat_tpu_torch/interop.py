@@ -1,8 +1,8 @@
 """Carry the JAX package's frozen state into the port.
 
-``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``ELL``/``BSR``/
-``StripELL``/``RouteStream``/``SlabELL``/``SlabPack`` from the JAX
-package's frozen arrays handed over as numpy
+``from_reference`` builds the port's ``COO``/``CSR``/``DIA``/``ELL``/``SELL``/
+``BSR``/``StripELL``/``RouteStream``/``SlabELL``/``SlabPack``/``SlabStream``/
+``WELL``/``GELL`` from the JAX package's frozen arrays handed over as numpy
 (``np.asarray(jax_csr.indptr)`` and so on), so both packages compute on the
 same matrix and the same frozen layout.  Nothing of the JAX package is
 imported.
@@ -18,22 +18,34 @@ from .formats.coo import COO
 from .formats.csr import CSR
 from .formats.dia import DIA
 from .formats.ell import ELL
+from .formats.gell import GELL
 from .formats.route import ARRAYS as _ROUTE_ARRAYS
 from .formats.route import RouteStream
-from .formats.slab import SlabELL, SlabPack
+from .formats.sell import SELL
+from .formats.slab import SlabELL, SlabPack, SlabStream
 from .formats.strip import StripELL, StripPart
+from .formats.well import WELL
+from .types import resolve_device
 
 _FIELDS = {"coo": ("rows", "cols", "vals"),
            "csr": ("indptr", "indices", "data", "row_ids"),
            "dia": ("data",),
            "ell": ("cols", "vals", "row_nnz"),
            "bsr": ("blocks", "block_rows", "block_cols", "occ"),
-           "route": _ROUTE_ARRAYS}
+           "route": _ROUTE_ARRAYS,
+           "well": ("vals", "lidx", "tile_rows", "tile_wins", "row_cnt"),
+           "slab_stream": ("vals", "lidx", "win_id", "blk_id", "cnt8", "row_block"),
+           "sell": ("slot_rows", "slot_cols", "slot_vals", "slice_offsets", "slice_height")}
 #: fields the port has no use for: DIA's lane-packed copy for the TPU
-#: tiling, BSR's TPU call chunks
-_IGNORED = {"dia": ("tdata",), "bsr": ("chunks",)}
+#: tiling, BSR's and WELL's TPU call chunks
+_IGNORED = {"dia": ("tdata",), "bsr": ("chunks",), "well": ("chunks",)}
 #: fields that may be None (absent)
-_OPTIONAL = {"bsr": ("occ",)}
+_OPTIONAL = {"bsr": ("occ",), "well": ("row_cnt",)}
+#: static (integer) fields
+_STATIC = {"slab_stream": ("row_block",), "sell": ("slice_height",)}
+_CLASSES = {"well": WELL, "slab_stream": SlabStream, "sell": SELL}
+#: a GELL's fields: levels (ELL dicts), inv_maps, level_rows
+_GELL_FIELDS = ("levels", "inv_maps", "level_rows")
 #: a StripELL part's arrays and static fields
 _STRIP_ARRAYS = ("vals", "lidx", "wrel", "wtile", "occ")
 _STRIP_STATIC = ("block_ids", "g4", "lidx_pack")
@@ -46,11 +58,16 @@ _PACK_FIELDS = ("parts", "block_ids", "row_block", "overflow")
 
 def from_reference(fields: dict, *, format: str, shape, offsets=None,
                    device=None):
-    """The port's format ``format`` ('coo', 'csr', 'dia', 'ell', 'bsr',
-    'strip', 'route', 'slab' or 'slab_pack') from the JAX package's frozen
-    arrays ``fields`` (name → numpy array), on ``device``.  A DIA needs
-    ``offsets``; a DIA's ``tdata`` and a BSR's ``chunks`` are accepted and
-    ignored; a BSR's ``occ`` may be None.  A RouteStream takes its 17
+    """The port's format ``format`` ('coo', 'csr', 'dia', 'ell', 'sell',
+    'bsr', 'strip', 'route', 'slab', 'slab_pack', 'slab_stream', 'well' or
+    'gell') from the JAX package's frozen arrays ``fields`` (name → numpy
+    array), on ``device`` (None: the current CUDA card).  A DIA needs
+    ``offsets``; a DIA's ``tdata`` and a BSR's and a WELL's ``chunks`` are
+    accepted and ignored; a BSR's ``occ`` and a WELL's ``row_cnt`` may be
+    None.  A SlabStream takes its arrays and ``row_block``, a SELL its
+    arrays and ``slice_height``.  A GELL takes ``levels`` (each an ELL's
+    dict of cols, vals, row_nnz and ``shape``), ``inv_maps`` and
+    ``level_rows``.  A RouteStream takes its 17
     arrays.  A StripELL takes ``{"parts": [part, ...]}``, each part a dict
     of its arrays (vals, lidx, wrel, wtile, occ) and static fields
     (block_ids, g4, lidx_pack).  A SlabELL takes its arrays (vals, lidx,
@@ -58,6 +75,9 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
     ``{"parts": [slab, ...], "block_ids", "row_block", "overflow"}``, each
     part a SlabELL's dict and the overflow a SlabPack's dict or None."""
     shape = tuple(int(s) for s in shape)
+    device = resolve_device(device)
+    if format == "gell":
+        return _gell(fields, shape, device)
     if format == "strip":
         if set(fields) != {"parts"}:
             raise ValueError(f"strip: expected the field 'parts', got {sorted(fields)}")
@@ -69,11 +89,16 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
         return _slab_pack(fields, shape, device)
     if format not in _FIELDS:
         raise ValueError(f"unknown format {format!r}; expected one of "
-                         f"{sorted(_FIELDS) + ['slab', 'slab_pack', 'strip']}")
+                         f"{sorted(_FIELDS) + ['gell', 'slab', 'slab_pack', 'strip']}")
     need = _FIELDS[format]
     _check_fields(format, fields, need, _IGNORED.get(format, ()))
-    host = {f: np.asarray(fields[f]) for f in need
-            if not (f in _OPTIONAL.get(format, ()) and fields[f] is None)}
+    static = {f: int(fields[f]) for f in _STATIC.get(format, ())}
+    host = {f: np.asarray(fields[f]) for f in need if f not in static
+            and not (f in _OPTIONAL.get(format, ()) and fields[f] is None)}
+    if format in _CLASSES:
+        arrays = {f: to_device(host[f], None, device) if f in host else None
+                  for f in need if f not in static}
+        return _CLASSES[format](**arrays, **static, shape=shape)._stash_host(**host)
     if format == "route":
         return RouteStream.from_host(host, shape, device=device)
     t = {f: to_device(a, None, device) for f, a in host.items()}
@@ -117,6 +142,21 @@ def _slab_pack(fields: dict, shape, device) -> SlabPack:
     overflow = fields["overflow"]
     return SlabPack(parts=parts, block_ids=ids, shape=shape, row_block=rb,
                     overflow=None if overflow is None else _slab_pack(overflow, shape, device))
+
+
+def _ell(fields: dict, device) -> ELL:
+    _check_fields("gell level", fields, ("cols", "vals", "row_nnz", "shape"))
+    return ELL(**{f: to_device(np.asarray(fields[f]), None, device)
+                  for f in ("cols", "vals", "row_nnz")},
+               shape=tuple(int(s) for s in fields["shape"]))
+
+
+def _gell(fields: dict, shape, device) -> GELL:
+    _check_fields("gell", fields, _GELL_FIELDS)
+    return GELL(levels=tuple(_ell(lvl, device) for lvl in fields["levels"]),
+                **{f: tuple(to_device(np.asarray(a), None, device) for a in fields[f])
+                   for f in ("inv_maps", "level_rows")},
+                shape=shape)
 
 
 def _strip_part(part: dict, shape, device) -> StripPart:

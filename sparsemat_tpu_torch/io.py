@@ -1,12 +1,13 @@
 """I/O and rendering (counterpart of ``sparsemat_tpu/io.py``).
 
 MatrixMarket: ``load_mtx`` reads a file into the port's ``CSR`` through the
-C++ parser shared with the JAX package (``sparsemat_tpu/native/mmio.cc``,
-built by path in ``native``), with the numpy reader for the variants the
+C++ parser (the port's copy of the JAX package's, ``csrc/mmio.cc``, built
+in ``native``), with the numpy reader for the variants the
 C++ parser does not take; ``save_mtx`` writes coordinate/real/general with
 the C++ writer.  Rendering: ``to_string_row``/``to_string`` (dense text)
 and ``to_pbm`` (P1 structure bitmap), as the JAX package renders them.
-All of it runs on the host; ``load_mtx(..., device=...)`` uploads once.
+All of it runs on the host; ``load_mtx(..., device=...)`` uploads once (to
+the current CUDA card when no device is named).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from .formats.csr import CSR
-from .types import host_dtype
+from .types import host_dtype, resolve_device
 
 
 def _fmt(v) -> str:
@@ -86,6 +87,7 @@ def load_mtx(path: str, *, dtype=np.float32, index_dtype=np.int32, device=None) 
     global last_mtx_parser
     from .native import parse_mtx_native
 
+    device = resolve_device(device)
     try:
         rows, cols, vals, shape = parse_mtx_native(path, dtype)
         last_mtx_parser = "native"

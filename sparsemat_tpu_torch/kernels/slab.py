@@ -1,9 +1,9 @@
-"""SlabELL / SlabPack SpMV and SpMM: the CUDA kernels' wrappers, their plain
-versions and launch counters.  Counterpart of the slab halves of two JAX
-modules: ``sparsemat_tpu/kernels/spmv.py`` (``slab_spmv_pallas``,
-``slab_pack_spmv_pallas``, ``slab_spmv_xla``, ``slab_pack_spmv_xla``) and
-``sparsemat_tpu/kernels/spmm.py`` (``slab_spmm_pallas``,
-``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
+"""SlabELL / SlabPack SpMV and SpMM, and the SlabStream SpMV: the CUDA
+kernels' wrappers, their plain versions and launch counters.  Counterpart of
+the slab halves of two JAX modules: ``sparsemat_tpu/kernels/spmv.py``
+(``slab_spmv_pallas``, ``slab_pack_spmv_pallas``, ``slab_stream_spmv_pallas``
+and their ``*_xla`` oracles) and ``sparsemat_tpu/kernels/spmm.py``
+(``slab_spmm_pallas``, ``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
 
 The CUDA kernels live in ``csrc/slab.cu`` (see the note there for what they
 replace and what bounds them): one launch per level of the matrix (its
@@ -12,6 +12,9 @@ written straight to its global rows, the overflow's added on top.  The TPU's
 per-part calls, its ``_slab_pack_combine`` permutation and its VMEM-bounded
 column grouping (``slab_spmm_mc``) have no counterpart.  The plain versions
 keep the per-part loop and the permutation, so the two are independent.
+The SlabStream kernel is one launch of one CTA per row block over the
+block's chunks; the TPU's SMEM-sized splits, chunk groups and resident y
+have no counterpart.
 
 Dtypes: the values and x / B are cast to the accumulation dtype of the two
 (bf16/f16 to f32) before the launch; the kernels run in f32 or f64.  A
@@ -27,13 +30,14 @@ import ctypes
 import numpy as np
 import torch
 
-from ..formats.slab import WINDOW, SlabELL, SlabPack
+from ..formats.slab import SUBLANE, WINDOW, SlabELL, SlabPack, SlabStream
 from ..types import FLOAT_DTYPES, accum_dtype
 from .._build import load_cuda
+from ._common import block_ranges, gather
 
 #: kernel launches (plain versions do not count); a SlabPack with an
 #: overflow pack launches twice per product
-LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0}
+LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: columns of B per thread the SpMM kernel is built for
@@ -61,6 +65,9 @@ def _kernels() -> ctypes.CDLL:
             fn = getattr(lib, f"smt_slab_spmm_{s}")
             fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, i32, vp, vp, i32, vp]
             fn.restype = i32
+            fn = getattr(lib, f"smt_slab_stream_spmv_{s}")
+            fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i64, i64, vp, vp, vp]
+            fn.restype = i32
         lib.smt_slab_error_string.argtypes = [i32]
         lib.smt_slab_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -73,16 +80,6 @@ def _slab_cols(sl: SlabELL) -> torch.Tensor:
     """(n_rb, C, rb) int64 column of every slot."""
     w_of = torch.from_numpy(sl._window_of_cpos()).to(sl.vals.device).long()
     return sl.lidx.long() + (sl.win_lo.long()[:, None, None] + w_of[None, :, None]) * WINDOW
-
-
-def _gather(X: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """X's rows at ``cols``; a column ≥ n_cols reads 0 (the JAX package's
-    fill-mode gather)."""
-    inside = cols < n_cols
-    if n_cols == 0:
-        return X.new_zeros(tuple(cols.shape) + tuple(X.shape[1:]))
-    g = X[torch.where(inside, cols, 0)]
-    return torch.where(inside.reshape(inside.shape + (1,) * (X.dim() - 1)), g, 0)
 
 
 def _combine(pack: SlabPack, part_ys) -> torch.Tensor:
@@ -100,7 +97,7 @@ def slab_spmv_ref(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: every slot's value times x at its column, summed over the
     C axis — the JAX package's ``slab_spmv_xla``."""
     adt = accum_dtype(torch.promote_types(sl.vals.dtype, x.dtype))
-    xg = _gather(x.to(adt), _slab_cols(sl), sl.shape[1])
+    xg = gather(x.to(adt), _slab_cols(sl), sl.shape[1])
     y = torch.sum(sl.vals.to(adt) * xg, dim=1)                  # (n_rb, rb)
     return y.reshape(-1)[: sl.shape[0]]
 
@@ -124,7 +121,7 @@ def slab_spmm_ref(sl: SlabELL, B: torch.Tensor) -> torch.Tensor:
     cols = _slab_cols(sl)
     vals = sl.vals.to(adt)[..., None]
     g = max(_REF_GATHER_BUDGET // max(sl.nse * adt.itemsize, 1), 1)
-    out = [torch.sum(vals * _gather(B[:, j:j + g].to(adt), cols, sl.shape[1]), dim=1)
+    out = [torch.sum(vals * gather(B[:, j:j + g].to(adt), cols, sl.shape[1]), dim=1)
            for j in range(0, m, g)]                              # (n_rb, rb, g) each
     Y = torch.cat(out, dim=2) if out else torch.zeros((n_rb, rb, 0), dtype=adt,
                                                        device=B.device)
@@ -139,6 +136,22 @@ def slab_pack_spmm_ref(pack: SlabPack, B: torch.Tensor) -> torch.Tensor:
     if pack.overflow is not None:
         Y = Y + slab_pack_spmm_ref(pack.overflow, B)
     return Y
+
+
+def slab_stream_spmv_ref(st: SlabStream, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x: every chunk's slots times x at their columns, summed over
+    the 8 sublanes, then added into the chunk's row block (a chunk aimed at
+    a block past the last goes to a spare row and is dropped) — the JAX
+    package's ``slab_stream_spmv_xla``."""
+    n_rows, n_cols = st.shape
+    rb = st.row_block
+    n_rb = st.n_row_blocks
+    adt = accum_dtype(torch.promote_types(st.vals.dtype, x.dtype))
+    cols = st.win_id.long()[:, None, None] * WINDOW + st.lidx.long()
+    contrib = torch.sum(st.vals.to(adt) * gather(x.to(adt), cols, n_cols), dim=1)
+    y = torch.zeros((n_rb + 1, rb), dtype=adt, device=x.device)
+    y.index_add_(0, st.blk_id.long().clamp(0, n_rb), contrib)
+    return y[:n_rb].reshape(-1)[:n_rows]
 
 
 # --- the kernels -----------------------------------------------------------------
@@ -306,3 +319,75 @@ def slab_pack_spmm(pack: SlabPack, B: torch.Tensor) -> torch.Tensor:
     """Y = A @ B over a SlabPack.  CUDA: one launch of ``slab_spmm_kernel``
     over all parts, one more per overflow pack; CPU: the plain version."""
     return slab_pack_spmm_ref(pack, B) if _on_cpu(pack, B) else _launch(pack, B, "slab_spmm")
+
+
+class _StreamPlan:
+    """Each row block's chunk range over the chunks in block order, and that
+    order where the layout's chunks are not already in it."""
+
+    def __init__(self, st: SlabStream):
+        dev = st.vals.device
+        n, sub, rb = st.vals.shape
+        if dev.type != "cuda" or any(t.device != dev for t in (st.lidx, st.win_id, st.blk_id)):
+            raise ValueError(f"slab_stream_spmv: the kernel needs every array on one CUDA "
+                             f"device, got {dev}")
+        if st.vals.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"slab_stream_spmv: the CUDA kernel takes float values, got "
+                            f"{st.vals.dtype}")
+        if (sub != SUBLANE or rb != st.row_block or tuple(st.lidx.shape) != (n, SUBLANE, rb)
+                or tuple(st.win_id.shape) != (n,) or tuple(st.blk_id.shape) != (n,)):
+            raise ValueError("slab_stream_spmv: the arrays do not form a SlabStream layout")
+        if rb % 32 or not 0 < rb <= 1024:
+            raise ValueError(f"slab_stream_spmv: row block {rb} is not a multiple of 32 "
+                             f"up to 1024")
+        if st.lidx.dtype != torch.int32 or st.win_id.dtype != torch.int32:
+            raise TypeError("slab_stream_spmv: lidx and win_id must be int32")
+        if not all(t.is_contiguous() for t in (st.vals, st.lidx, st.win_id)):
+            raise ValueError("slab_stream_spmv: the kernel needs contiguous arrays")
+        if n and (int(st.lidx.min()) < 0 or int(st.lidx.max()) >= WINDOW
+                  or int(st.win_id.min()) < 0):
+            raise ValueError("slab_stream_spmv: lidx must lie in [0, 128) and win_id "
+                             "be >= 0")
+        self.n_rb = st.n_row_blocks
+        ptr, order = block_ranges(st.host("blk_id"), self.n_rb)
+        self.chunk_ptr = torch.from_numpy(ptr).to(dev)
+        self.order = None if order is None else torch.from_numpy(order).to(dev)
+
+
+def slab_stream_spmv(st: SlabStream, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a SlabStream.  CUDA: one launch of
+    ``slab_stream_spmv_kernel``; CPU: the plain version."""
+    if _on_cpu(st, x):
+        return slab_stream_spmv_ref(st, x)
+    n_rows, n_cols = st.shape
+    if x.device != st.vals.device:
+        raise ValueError(f"slab_stream_spmv: matrix on {st.vals.device} and vector on "
+                         f"{x.device}; the kernel needs both on one CUDA device")
+    if x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"slab_stream_spmv: the CUDA kernel takes a float vector, got "
+                        f"{x.dtype}")
+    if x.dim() != 1 or x.shape[0] != n_cols:
+        raise ValueError(f"slab_stream_spmv: vector of shape {tuple(x.shape)} for a "
+                         f"{st.shape} matrix")
+    plan = st.__dict__.get("_stream_plan")
+    if plan is None:
+        plan = _StreamPlan(st)
+        object.__setattr__(st, "_stream_plan", plan)
+    adt = accum_dtype(torch.promote_types(st.vals.dtype, x.dtype))
+    vals = st.vals.to(adt)
+    x = x.to(adt).contiguous()
+    y = torch.empty(n_rows, dtype=adt, device=x.device)
+    if n_rows == 0:
+        return y
+    lib = _kernels()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"smt_slab_stream_spmv_{_SUFFIX[adt]}")(
+            vals.data_ptr(), st.lidx.data_ptr(), st.win_id.data_ptr(),
+            plan.chunk_ptr.data_ptr(), plan.order.data_ptr() if plan.order is not None else None,
+            plan.n_rb, st.row_block, n_rows, n_cols, x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"slab_stream_spmv: CUDA error {rc} "
+                           f"({lib.smt_slab_error_string(rc).decode()})")
+    LAUNCHES["slab_stream_spmv"] += 1
+    return y

@@ -1,10 +1,9 @@
-"""Native (C++) assembly store and MatrixMarket parser, shared with the JAX
-package.
+"""Native (C++) assembly store and MatrixMarket parser.
 
-The sources are the JAX package's ``sparsemat_tpu/native/{assembly,mmio}.cc``,
-compiled here by file path with g++ into the port's build directory (keyed
-by source hash) and bound with ctypes.  Nothing of ``sparsemat_tpu`` is
-imported: its package import pulls in jax.  When the library cannot be
+The sources are the port's own copies of the JAX package's C++ files,
+``csrc/assembly.cc`` and ``csrc/mmio.cc``, compiled with g++ into the port's
+build directory (keyed by source hash) and bound with ctypes.  Nothing of
+``sparsemat_tpu`` is compiled, read or imported.  When the library cannot be
 built, ``get_lib`` returns None (once, loudly): the builder uses its
 pure-Python store and ``io.load_mtx`` its numpy reader.
 """
@@ -18,9 +17,8 @@ from typing import Optional
 
 import numpy as np
 
-from .._build import REPO_ROOT, compile_shared
+from .._build import CSRC_DIR, compile_shared
 
-_SRC_DIR = os.path.join(REPO_ROOT, "sparsemat_tpu", "native")
 _SOURCES = ["assembly.cc", "mmio.cc"]
 _GXX = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
         "-pthread"]
@@ -69,7 +67,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _lib_error is not None:
         return _lib
     try:
-        srcs = [os.path.join(_SRC_DIR, s) for s in _SOURCES]
+        srcs = [os.path.join(CSRC_DIR, s) for s in _SOURCES]
         _lib = _bind(ctypes.CDLL(compile_shared("smt_native", _GXX, srcs)))
     except (OSError, RuntimeError, AttributeError) as e:
         _lib_error = str(e)

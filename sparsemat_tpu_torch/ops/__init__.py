@@ -1,6 +1,7 @@
-"""Functional ops over sparse formats.  The slice ported so far: SpMV, its
-fused dot and chain forms, and SpMM."""
+"""Functional ops over sparse formats: SpMV, its fused dot and chain forms,
+SpMM and Aᵀy (``rmatvec``).  The JAX package's ``ops/algebra.py`` (SpGEMM
+and the rest of the matrix algebra) is not ported."""
 
-from .matvec import spmm, spmv, spmv_chain, spmv_dot
+from .matvec import rmatvec, spmm, spmv, spmv_chain, spmv_dot
 
-__all__ = ["spmm", "spmv", "spmv_chain", "spmv_dot"]
+__all__ = ["rmatvec", "spmm", "spmv", "spmv_chain", "spmv_dot"]

@@ -1,16 +1,20 @@
-"""SpMV, its fused forms, and SpMM (counterpart of
+"""SpMV, its fused forms, SpMM and Aᵀy (counterpart of
 ``sparsemat_tpu/ops/matvec.py``).
 
 Dispatch by format, in the JAX package's order: DIA goes to the DIA kernels
 (``kernels/dia.py``), StripELL to the strip kernel (``kernels/strip.py``),
-RouteStream to the two route kernels (``kernels/route.py``), SlabPack and
-SlabELL to the slab kernels (``kernels/slab.py``) and, for SpMM, BSR to the
-BSR kernel (``kernels/spmm.py``); each launches on CUDA tensors and takes
-its plain version on CPU tensors.  ELL takes dense gather sweeps; CSR and
-COO take the stream path: gather by column, multiply, and reduce each row's
-segment in order.  The segmented reduction has no atomics (a scatter-add
-with ``index_add_`` would use them on CUDA), so reruns are bitwise equal.
-WELL, SlabStream and GELL are not ported yet.
+RouteStream to the two route kernels (``kernels/route.py``), SlabStream,
+SlabPack and SlabELL to the slab kernels (``kernels/slab.py``), WELL (and
+any matrix under ``method='pallas'``) to the WELL kernel (``kernels/well.py``)
+and, for SpMM, BSR to the BSR kernel (``kernels/spmm.py``); each launches on
+CUDA tensors and takes its plain version on CPU tensors.  GELL takes one
+ELL gather sweep per level, joined by gathers through its inverse row maps;
+ELL takes dense gather sweeps; CSR and COO (and SELL, through COO) take the
+stream path: gather by column, multiply, and reduce each row's segment in
+order.  The segmented reduction has no atomics (a scatter-add with
+``index_add_`` would use them on CUDA), so reruns are bitwise equal.
+``rmatvec`` reduces by column the same way, over a column order of the
+entries built once per matrix.
 """
 
 from __future__ import annotations
@@ -21,19 +25,24 @@ from ..formats.bsr import BSR
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..formats.dia import DIA, dia_spmm
+from ..formats.dia import dia_spmv as dia_spmv_plain
 from ..formats.ell import ELL
+from ..formats.gell import GELL
 from ..formats.route import RouteStream
-from ..formats.slab import SlabELL, SlabPack
+from ..formats.slab import SlabELL, SlabPack, SlabStream
 from ..formats.strip import StripELL
+from ..formats.well import WELL
 from ..kernels import dia as dia_kernels
 from ..kernels import route as route_kernels
 from ..kernels import slab as slab_kernels
 from ..kernels import spmm as spmm_kernels
 from ..kernels import strip as strip_kernels
+from ..kernels import well as well_kernels
 from ..types import accum_dtype
 
-_SPMV_METHODS = (None, "strip", "route", "slab_pack", "slab", "ell")
-_SPMM_METHODS = (None, "pallas", "bsr", "dia", "slab_pack", "slab", "ell")
+_SPMV_METHODS = (None, "pallas", "dia", "dia_xla", "strip", "route", "slab_stream",
+                 "slab_pack", "slab", "well", "gell", "ell")
+_SPMM_METHODS = (None, "pallas", "bsr", "dia", "slab_pack", "slab", "gell", "ell")
 #: cap on the materialised (nnz, tile) gather of the stream SpMM, and on the
 #: (n_rows, K, m) gather the CSR branch allows the ELL path (the JAX
 #: package's 512 MB)
@@ -47,8 +56,8 @@ def _check_dims(mat, x, what="spmv"):
             f"leading dim {x.shape[0]}")
 
 
-def _not_ported(what, method):
-    raise ValueError(f"{what}: method {method!r} is not ported")
+def _unknown(what, method):
+    raise ValueError(f"{what}: unknown method {method!r}")
 
 
 # --- CSR / COO stream path ---------------------------------------------------
@@ -102,35 +111,73 @@ def _ell_spmm(ell: ELL, B):
     return y[: ell.n_rows]
 
 
+# --- GELL ladder path (no scatter anywhere: see formats/gell.py) -------------
+
+def _join(y, yl, inv):
+    """y + yl[inv], where inv == len(yl) (a row absent from the level)
+    reads 0."""
+    pad = yl.new_zeros((1,) + tuple(yl.shape[1:]))
+    return y + torch.cat([yl, pad])[inv.long()]
+
+
+def _gell_spmv(g: GELL, x):
+    y = _ell_spmv(g.levels[0], x)
+    for lvl, inv in zip(g.levels[1:], g.inv_maps):
+        y = _join(y, _ell_spmv(lvl, x), inv)
+    return y
+
+
+def _gell_spmm(g: GELL, B):
+    Y = _ell_spmm(g.levels[0], B)
+    for lvl, inv in zip(g.levels[1:], g.inv_maps):
+        Y = _join(Y, _ell_spmm(lvl, B), inv)
+    return Y
+
+
 # --- public dispatch ---------------------------------------------------------
 
 def spmv(mat, x, *, method: str | None = None) -> torch.Tensor:
-    """y = A @ x.  ``method``: None (by format), or 'strip', 'route',
-    'slab_pack', 'slab' or 'ell' (freeze to that format first, as the JAX
-    package's methods do)."""
+    """y = A @ x.  ``method``: None (by format), or one of 'pallas' (any
+    format frozen to WELL, then the WELL kernel), 'dia' (the DIA kernel),
+    'dia_xla' (the plain DIA SpMV on any device), 'strip', 'route',
+    'slab_stream', 'slab_pack', 'slab', 'well', 'gell' or 'ell' (freeze to
+    that format first, as the JAX package's methods do)."""
     x = torch.as_tensor(x)
     _check_dims(mat, x)
     if method not in _SPMV_METHODS:
-        _not_ported("spmv", method)
-    if isinstance(mat, DIA):
-        return dia_kernels.dia_spmv(mat, x)
+        _unknown("spmv", method)
+    if method == "pallas":
+        return well_kernels.well_spmv(mat if isinstance(mat, WELL) else mat.to_well(), x)
+    if isinstance(mat, DIA) or method in ("dia", "dia_xla"):
+        dia = mat if isinstance(mat, DIA) else mat.to_dia()
+        if method == "dia_xla":
+            return dia_spmv_plain(dia, x)
+        return dia_kernels.dia_spmv(dia, x)
     if isinstance(mat, StripELL) or method == "strip":
         st = mat if isinstance(mat, StripELL) else mat.to_strip()
         return strip_kernels.strip_spmv(st, x)
     if isinstance(mat, RouteStream) or method == "route":
         rs = mat if isinstance(mat, RouteStream) else mat.to_route()
         return route_kernels.route_spmv(rs, x)
+    if isinstance(mat, SlabStream) or method == "slab_stream":
+        st = mat if isinstance(mat, SlabStream) else mat.to_slab_stream()
+        return slab_kernels.slab_stream_spmv(st, x)
     if isinstance(mat, SlabPack) or method == "slab_pack":
         pk = mat if isinstance(mat, SlabPack) else mat.to_slab_pack()
         return slab_kernels.slab_pack_spmv(pk, x)
     if isinstance(mat, SlabELL) or method == "slab":
         sl = mat if isinstance(mat, SlabELL) else mat.to_slab()
         return slab_kernels.slab_spmv(sl, x)
+    if isinstance(mat, WELL) or method == "well":
+        well = mat if isinstance(mat, WELL) else mat.to_well()
+        return well_kernels.well_spmv(well, x)
+    if isinstance(mat, GELL) or method == "gell":
+        return _gell_spmv(mat if isinstance(mat, GELL) else mat.to_gell(), x)
     if isinstance(mat, ELL) or method == "ell":
         return _ell_spmv(mat.to_ell(), x)
     if isinstance(mat, CSR):
         return _stream_spmv(mat.indptr, mat.indices, mat.data, x)
-    # COO, and any other format (BSR) through COO, as in the JAX package
+    # COO, and any other format (BSR, SELL) through COO, as in the JAX package
     coo = mat.to_coo().sort()
     return _stream_spmv(coo.indptr(), coo.cols, coo.vals, x)
 
@@ -168,13 +215,14 @@ def spmv_chain(mat, x, k: int) -> torch.Tensor:
 def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
     """Y = A @ B for dense B of shape (n_cols, m).  ``method``: None (by
     format), 'pallas' or 'bsr' (BSR freeze, the BSR kernel), 'dia',
-    'slab_pack', 'slab' or 'ell'; 'gell' is not ported yet."""
+    'slab_pack', 'slab', 'gell' or 'ell'.  WELL, SlabStream and SELL go
+    through CSR, as in the JAX package."""
     B = torch.as_tensor(B)
     _check_dims(mat, B, "spmm")
     if B.dim() != 2:
         raise ValueError(f"spmm: B must be (n_cols, m), got shape {tuple(B.shape)}")
     if method not in _SPMM_METHODS:
-        _not_ported("spmm", method)
+        _unknown("spmm", method)
     if isinstance(mat, BSR) or method in ("pallas", "bsr"):
         return spmm_kernels.spmm_pallas(mat, B)
     if isinstance(mat, DIA) or method == "dia":
@@ -185,6 +233,8 @@ def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
     if isinstance(mat, SlabELL) or method == "slab":
         sl = mat if isinstance(mat, SlabELL) else mat.to_slab()
         return slab_kernels.slab_spmm(sl, B)
+    if isinstance(mat, GELL) or method == "gell":
+        return _gell_spmm(mat if isinstance(mat, GELL) else mat.to_gell(), B)
     if isinstance(mat, ELL) or method == "ell":
         return _ell_spmm(mat.to_ell(), B)
     if isinstance(mat, CSR):
@@ -201,3 +251,37 @@ def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
         return _stream_spmm_tiled(coo.indptr(), coo.cols, coo.vals, B)
     # any other format through CSR, so the ELL-or-stream choice applies
     return spmm(mat.to_csr(), B, method=method)
+
+
+def _column_order(mat):
+    """(rows, col offsets, vals) of the matrix's stored entries in column
+    order (a stable sort, so each column keeps the COO's entry order), with
+    padding and out-of-range entries dropped; built once per matrix and
+    cached on it (a frozen matrix's layout and values never change)."""
+    cached = mat.__dict__.get("_column_order")
+    if cached is not None:
+        return cached
+    n_rows, n_cols = mat.shape
+    coo = mat.to_coo()
+    rows, cols = coo.rows.long(), coo.cols.long()
+    keep = (rows >= 0) & (rows < n_rows) & (cols >= 0) & (cols < n_cols)
+    rows, cols, vals = rows[keep], cols[keep], coo.vals[keep]
+    order = torch.sort(cols, stable=True).indices
+    counts = torch.bincount(cols, minlength=n_cols)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    cached = (rows[order], offsets, vals[order])
+    object.__setattr__(mat, "_column_order", cached)
+    return cached
+
+
+def rmatvec(mat, y) -> torch.Tensor:
+    """x = Aᵀ @ y without building the transpose: each column's entries
+    times y at their rows, reduced per column in a fixed order (no atomics,
+    so reruns are bitwise equal on a card as on the host)."""
+    y = torch.as_tensor(y)
+    if y.dim() != 1 or y.shape[0] != mat.shape[0]:
+        raise ValueError(f"rmatvec: matrix is {mat.shape}, operand {tuple(y.shape)}")
+    rows, offsets, vals = _column_order(mat)
+    adt = accum_dtype(torch.promote_types(vals.dtype, y.dtype))
+    prod = vals.to(adt) * torch.index_select(y, 0, rows).to(adt)
+    return torch.segment_reduce(prod, "sum", offsets=offsets, unsafe=True)

@@ -4,6 +4,11 @@ Counterpart of ``sparsemat_tpu/types.py``: value dtypes, the default index
 width, the UNSET padding sentinel and the accumulation rule, in torch
 dtypes.  Host-side freezes run in numpy, so each torch dtype also has the
 numpy dtype its host arrays use (bfloat16 has none and stages in float32).
+
+Also the device policy: an entry point that builds tensors (a freeze from
+host arrays, a loader, ``to_torch``) puts them on ``default_device()``, the
+current CUDA card, unless the caller names a device; ``device="cpu"`` asks
+for the CPU.  Formats derived from a matrix stay on that matrix's device.
 """
 
 from __future__ import annotations
@@ -49,6 +54,20 @@ def unset_value(index_dtype: Any) -> int:
 
 def is_float_dtype(dtype: Any) -> bool:
     return as_torch_dtype(dtype) in FLOAT_DTYPES
+
+
+def default_device() -> torch.device:
+    """The current CUDA device.  Raises where torch finds no CUDA card: the
+    port never falls back to the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("sparsemat_tpu_torch: torch finds no CUDA card; pass "
+                           "device='cpu' to build on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device, None read as ``default_device()``."""
+    return default_device() if device is None else torch.device(device)
 
 
 def accum_dtype(dtype: Any) -> torch.dtype:

@@ -14,7 +14,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from .types import accum_dtype
+from .types import accum_dtype, resolve_device
 
 
 # --- functional helpers (the Vector trait's default methods) -----------------
@@ -105,7 +105,9 @@ class DenseVec:
         return float(np.sqrt(self.norm_squared()))
 
     def to_torch(self, device=None):
-        return torch.from_numpy(self._data.copy()).to(device)
+        """The values as a tensor on ``device`` (None: the current CUDA
+        card)."""
+        return torch.from_numpy(self._data.copy()).to(resolve_device(device))
 
     def to_numpy(self):
         return self._data.copy()
@@ -175,7 +177,9 @@ class SparseVec:
         return out
 
     def to_torch(self, dim: int | None = None, device=None):
-        return torch.from_numpy(self.to_dense(dim)).to(device)
+        """The dense values as a tensor on ``device`` (None: the current
+        CUDA card)."""
+        return torch.from_numpy(self.to_dense(dim)).to(resolve_device(device))
 
     def inner_prod(self, rhs) -> float:
         if isinstance(rhs, SparseVec):

@@ -16,6 +16,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.kernels import spmm as ksp
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 
 X3 = torch.tensor([2.0, 4.8, 1.2])

@@ -19,6 +19,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch import matgen, solvers
@@ -350,8 +351,10 @@ def test_spmv_dispatch_and_method():
     assert torch.equal(yd, y) and float(d) == pytest.approx(float(x @ y), rel=1e-6)
     y3 = tsm.spmv_chain(rs, x, 3)
     assert rel_err(y3, m @ (m @ (m @ x.numpy()))) < 1e-5
-    with pytest.raises(ValueError, match="not ported"):
-        tsm.spmv(csr, x, method="well")
+    # the general-matrix method, ported since: a WELL freeze and its kernel
+    assert rel_err(tsm.spmv(csr, x, method="well"), m @ x.numpy()) < 1e-5
+    with pytest.raises(ValueError, match="unknown method"):
+        tsm.spmv(csr, x, method="nope")
 
 
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():

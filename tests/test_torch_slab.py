@@ -18,6 +18,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.kernels import slab as ksl
 
@@ -320,7 +321,7 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ksl.slab_pack_spmv(pk, x), ksl.slab_pack_spmv_ref(pk, x))
     assert torch.equal(ksl.slab_spmm(sl, B), ksl.slab_spmm_ref(sl, B))
     assert torch.equal(ksl.slab_pack_spmm(pk, B), ksl.slab_pack_spmm_ref(pk, B))
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
 
 
 def test_plain_spmm_groups_columns_within_its_budget(monkeypatch):
@@ -417,7 +418,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     y = spmv(mat, x)
     y_ref = spmv_ref(mat, x)
     torch.cuda.synchronize()
-    assert ksl.LAUNCHES == {"slab_spmv": n_levels, "slab_spmm": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": n_levels, "slab_spmm": 0, "slab_stream_spmv": 0}
     assert y.dtype == y_ref.dtype and y.shape == (mat.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(spmv(mat, x), y)                   # reruns bitwise

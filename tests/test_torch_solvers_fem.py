@@ -18,6 +18,7 @@ import scipy.sparse as sp
 import torch
 
 import sparsemat_tpu as jsm
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu import matgen as jmatgen
 from sparsemat_tpu import solvers as js

@@ -17,6 +17,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import checkpoint as tck
 from sparsemat_tpu_torch.interop import from_reference
@@ -105,9 +106,12 @@ def test_spmm_methods_match_reference(method, dt):
 def test_spmm_gell_and_unknown_methods_raise():
     csr = tsm.CSR.from_scipy(banded())
     B = torch.zeros(300, 2)
-    for method in ("gell", "stream", "nope"):
-        with pytest.raises(ValueError, match="not ported"):
+    for method in ("stream", "nope"):
+        with pytest.raises(ValueError, match="unknown method"):
             tsm.spmm(csr, B, method=method)
+    # 'gell', ported since, computes
+    Bg = torch.from_numpy(np.random.default_rng(4).standard_normal((300, 2)).astype(np.float32))
+    assert rel_err(tsm.spmm(csr, Bg, method="gell"), banded() @ Bg.numpy()) < 1e-5
     with pytest.raises(ValueError, match="dimension"):
         tsm.spmm(csr, torch.zeros(299, 2))
 
@@ -194,9 +198,12 @@ def test_spmv_methods_match_reference(method):
 
 def test_spmv_methods_not_ported_raise():
     csr = tsm.CSR.from_scipy(banded())
+    with pytest.raises(ValueError, match="unknown method"):
+        tsm.spmv(csr, torch.zeros(300), method="nope")
+    # the general-matrix methods, ported since, compute
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(300).astype(np.float32))
     for method in ("pallas", "slab_stream", "gell"):
-        with pytest.raises(ValueError, match="not ported"):
-            tsm.spmv(csr, torch.zeros(300), method=method)
+        assert rel_err(tsm.spmv(csr, x, method=method), banded() @ x.numpy()) < 1e-5
 
 
 # -- ELL -------------------------------------------------------------------------------
@@ -395,7 +402,8 @@ def test_spmm_path_end_to_end():
     assert bool(info.converged) and bool(jinfo.converged)
     assert abs(int(info.iterations) - int(jinfo.iterations)) <= 1
     assert rel_err(x, jx) < 1e-8
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0} and ksp.LAUNCHES["bsr_spmm"] == 0
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
+    assert ksp.LAUNCHES["bsr_spmm"] == 0
 
 
 # -- the dispatch on a CUDA card (needs a card) ------------------------------------------------
@@ -428,6 +436,6 @@ def test_cuda_dispatch_goes_through_the_kernels(cuda):
     assert ksp.LAUNCHES["bsr_spmm"] == 5
     n_levels = 1 + (csr.to_slab_pack().overflow is not None)
     assert ksl.LAUNCHES == {"slab_spmm": 2 * (n_levels + 1) + n_levels + 1,
-                            "slab_spmv": n_levels + 1}
+                            "slab_spmv": n_levels + 1, "slab_stream_spmv": 0}
     for mat in (csr, csr.to_ell(), csr.to_coo()):          # no kernel of their own
         assert rel_err(tsm.spmm(mat, B).cpu(), want) < 1e-5

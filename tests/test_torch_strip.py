@@ -16,6 +16,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.formats import strip as tstrip
 from sparsemat_tpu_torch.interop import from_reference
@@ -224,8 +225,10 @@ def test_spmv_dispatch_and_method():
     assert torch.equal(yd, y) and float(d) == pytest.approx(float(x @ y), rel=1e-6)
     y3 = tsm.spmv_chain(st, x, 3)
     assert rel_err(y3, m @ (m @ (m @ x.numpy()))) < 1e-5
-    with pytest.raises(ValueError, match="not ported"):
-        tsm.spmv(csr, x, method="slab_stream")
+    # the SlabStream method, ported since, computes
+    assert rel_err(tsm.spmv(csr, x, method="slab_stream"), m @ x.numpy()) < 1e-5
+    with pytest.raises(ValueError, match="unknown method"):
+        tsm.spmv(csr, x, method="nope")
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
