@@ -16,8 +16,9 @@ Jacobi and PCG(Jacobi), on the scircuit-class surrogate
 benchmark's config 4a).  The SpMM path: the pwtk-class operator
 ``matgen.fem_block_band() * 2e-2`` at its full 217,920 rows (the reference
 benchmark's fem SpMV/SpMM configs) → CSR → BSR.from_csr_device (512×128
-blocks) → spmm at m = 128 through the BSR kernel, and → SlabPack / SlabELL
-→ spmv and spmm through the slab kernels.  The general-matrix path: the
+blocks) → spmm at m = 128 through the row-group kernel over the BSR's
+compact plan, and → SlabPack / SlabELL → spmv through the slab kernel and
+spmm through the row-group kernel over their plans.  The general-matrix path: the
 circuit operator through io.load_mtx and checkpoint.load_matrix with no
 device named (the current card) → WELL → spmv through the WELL kernel →
 BiCGStab, GMRES(30) and rmatvec; the FEM operator → SlabStream → spmv
@@ -73,30 +74,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 (profiler), GB/s of RouteStream.spmv_traffic_bytes, BiCGStab
                 iterations/s through the kernels and the plain version, and
                 the host seconds of the path's steps
- 17 bsr         the BSR SpMM kernel against its plain version, f32, f64 and
-                bf16 blocks: the JAX package's test shapes (64×256 m = 64,
-                100×300 m = 129), empty block rows, blocks 8/16/512 ×
-                128/256, a stored zero, m = 0, nnz = 0; from_csr_device
-                against the host freeze
- 18 slab        the slab SpMV and SpMM kernels against their plain versions,
-                f32, f64 and bf16 values, m = 1, 5, 8, 20, 129: SlabELL at
-                rb 128 and 256, SlabPack with and without spill (an
-                overflow pack), a rectangular matrix, an empty one, a stored
-                zero
+ 17 bsr         the row-group SpMM kernel through the BSR wrapper against
+                its plain version, f32, f64 and bf16 blocks: the JAX
+                package's test shapes (64×256 m = 64, 100×300 m = 129),
+                empty block rows, blocks 8/16/512 × 128/256, a stored zero,
+                m = 0, nnz = 0; from_csr_device against the host freeze
+ 18 slab        the slab SpMV kernel and the row-group SpMM kernel against
+                their plain versions, f32, f64 and bf16 values, m = 1, 5,
+                17, 128, 129: SlabELL at rb 128 and 256, SlabPack with and
+                without spill (an overflow pack), a rectangular matrix, an
+                empty one, a stored zero; where B holds inf or NaN, the
+                SpMM of a BSR and of a SlabELL against scipy's CSR SpMM
  19 fem spmm    the SpMM path at full size: BSR.from_csr_device(512×128) →
-                spmm (Y[:256, :8] against scipy, as the reference benchmark
-                checks), to_slab_pack and to_slab → spmv and spmm, each
-                kernel against its plain version, against the strip kernel,
-                the CSR stream path and the CSR spmm branch; a SlabPack
-                checkpoint reloaded to the card; the bsr_spmm, slab_spmv and
-                slab_spmm launch counters must be > 0; BSR spmm, SlabPack
-                spmv and spmm rerun bitwise
- 20 times       each new kernel against its plain version (CUDA events per
-                call, wrapper included) and its device time (profiler): BSR
-                SpMM in Tflop/s of the stored blocks and of 2·nnz·m,
-                SlabPack SpMV in GB/s of spmv_traffic_bytes beside the strip
-                and SlabELL SpMV, SlabPack SpMM per call; the host seconds of
-                the freezes
+                its row-group plan (build seconds, MB, group size, padding)
+                → spmm (Y[:256, :8] against scipy, as the reference
+                benchmark checks), to_slab_pack and to_slab → their plans →
+                spmv and spmm, each kernel against its plain version and
+                the plan's walk, against the strip kernel, the CSR stream
+                path and the CSR spmm branch; a SlabPack checkpoint
+                reloaded to the card; the bsr_spmm, slab_spmv and slab_spmm
+                launch counters must be > 0; BSR spmm, SlabPack spmv and
+                spmm rerun bitwise
+ 20 times       each kernel of the path against its plain version (CUDA
+                events per call, wrapper included) and its device time
+                (profiler): the SpMM through the BSR, SlabPack and SlabELL
+                wrappers in Tflop/s of 2·nnz·m and GB/s of the plan, B and
+                Y, and through the SlabPack at m = 1, 17, 129 and in f64
+                beside torch.sparse.mm, SlabPack and SlabELL SpMV in GB/s of spmv_traffic_bytes
+                beside the strip SpMV; the host seconds of the freezes and
+                plans
  21 well        the WELL kernel against its plain version, f32, f64 and bf16
                 values: tests/test_well.py's matrices (random 300², wide
                 64×1000, tall 1000×64, empty rows, a dense row), k_tile = 4
@@ -168,6 +174,7 @@ import torch
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import checkpoint, matgen, solvers
 from sparsemat_tpu_torch import io as tio
+from sparsemat_tpu_torch.kernels import _rowgroup as krg
 from sparsemat_tpu_torch.kernels import dia as kd
 from sparsemat_tpu_torch.kernels import route as kr
 from sparsemat_tpu_torch.kernels import slab as ksl
@@ -187,11 +194,11 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
                             "sparsemat_tpu/kernels/route.py:102"),
            "route_reduce": ("sparsemat_tpu_torch/csrc/route.cu",
                             "sparsemat_tpu/kernels/route.py:198"),
-           "bsr_spmm": ("sparsemat_tpu_torch/csrc/bsr.cu",
+           "bsr_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                         "sparsemat_tpu/kernels/spmm.py:72"),
            "slab_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
                          "sparsemat_tpu/kernels/spmv.py:165, sparsemat_tpu/kernels/spmv.py:271"),
-           "slab_spmm": ("sparsemat_tpu_torch/csrc/slab.cu",
+           "slab_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                          "sparsemat_tpu/kernels/spmm.py:204, sparsemat_tpu/kernels/spmm.py:301"),
            "well_spmv": ("sparsemat_tpu_torch/csrc/well.cu",
                          "sparsemat_tpu/kernels/spmv.py:50"),
@@ -310,12 +317,14 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn, iters):
-    """Times in turns — plain, kernel, kernel, plain — so drift hits both."""
-    p1 = cuda_ms(plain_fn, iters)
+def paired_ms(kernel_fn, plain_fn, iters, plain_iters=None):
+    """Times in turns — plain, kernel, kernel, plain — so drift hits both
+    (a slow plain version may take fewer iterations)."""
+    plain_iters = plain_iters or iters
+    p1 = cuda_ms(plain_fn, plain_iters)
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
-    p2 = cuda_ms(plain_fn, iters)
+    p2 = cuda_ms(plain_fn, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2, [k1, k2], [p1, p2]
 
 
@@ -410,7 +419,7 @@ def build_all():
         return out, time.perf_counter() - t0
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
-            "csrc/route.cu": kr._kernels, "csrc/bsr.cu": ksp._kernels,
+            "csrc/route.cu": kr._kernels, "csrc/spmm.cu": krg._kernels,
             "csrc/slab.cu": ksl._kernels, "csrc/well.cu": kw._kernels,
             "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
@@ -1062,6 +1071,46 @@ def slab_ops(mat):
     return ksl.slab_spmv, ksl.slab_spmv_ref, ksl.slab_spmm, ksl.slab_spmm_ref
 
 
+def check_non_finite_b(dev):
+    """Where B holds inf or NaN, the row-group kernel gives scipy's CSR
+    SpMM answer: a stored zero meets inf (0 · inf = NaN in both), and a
+    column that only a BSR block's unstored zeros and a SlabELL's padding
+    slots point at holds NaN (no NaN from it, where the dense plain
+    versions give one)."""
+    m = sprinkled(300, 520, 0.03, 11, zeros=(0,)).tocoo()
+    keep = m.col != 128                     # inside stored blocks, under padding slots
+    m = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    z = int(np.flatnonzero(m.data == 0)[0])
+    B = np.ones((520, 2), np.float32)
+    B[int(m.indices[z]), 0] = np.inf
+    B[128, 1] = np.nan
+    want = m @ B
+    check(np.isnan(want).sum() == 1, "the non-finite case: scipy gives one NaN")
+    csr = tsm.CSR.from_scipy(m, device=dev)
+    Bt = torch.from_numpy(B).to(dev)
+    out = {}
+    for label, mat, fn, ref in (("bsr", tsm.BSR.from_csr(csr), ksp.bsr_spmm, ksp.bsr_spmm_ref),
+                                ("slab", csr.to_slab(rb=128), ksl.slab_spmm, ksl.slab_spmm_ref)):
+        got = fn(mat, Bt).cpu().numpy()
+        inf = np.isinf(want)
+        check(np.array_equal(np.isnan(got), np.isnan(want))
+              and np.array_equal(got[inf], want[inf]),
+              f"non-finite B through {label}: NaN or inf where scipy has none, or the reverse")
+        ok = np.isfinite(want)
+        compare(None, torch.from_numpy(got[ok]), torch.from_numpy(want[ok]), 1e-5,
+                f"non-finite B through {label}, finite entries")
+        out[label] = (f"{int(np.isnan(got).sum())} NaN as scipy, plain version "
+                      f"{int(torch.isnan(ref(mat, Bt)).sum())}")
+    return out
+
+
+def plan_line(label, plan, seconds):
+    """The row-group plan of one matrix, for the phase lines."""
+    return (f"{label} plan: built in {seconds:.3f} s, {plan.nbytes / 1e6:.1f} MB, groups of "
+            f"{plan.group}, {plan.n_union} union columns for {plan.nnz} entries, padding "
+            f"{plan.padding:.4f}")
+
+
 def spmm_phases(dev, g, times, launches):
     """Phases 17–20: the BSR and slab kernels against their plain versions,
     and the FEM SpMM path at full size.  Adds the three kernels' times and
@@ -1111,16 +1160,18 @@ def spmm_phases(dev, g, times, launches):
             y, y_ref = spmv(m_dt, xs.to(a_dt)), spmv_ref(m_dt, xs.to(a_dt))
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("slab_spmv", y, y_ref, TOL[dt]["y"], f"{label} spmv {dt}"))
-            for m_rhs in (1, 5, 8, 20, 129):
+            for m_rhs in (1, 5, 17, 128, 129):
                 B = Bs[:, :m_rhs].to(a_dt)
                 errs.append(compare("slab_spmm", spmm(m_dt, B), spmm_ref(m_dt, B),
                                     TOL[dt]["y"], f"{label} spmm m={m_rhs} {dt}"))
         over = getattr(mat, "overflow", None)
         worst[label + (" (overflow)" if over is not None else "")] = max(errs)
+    nonfinite = check_non_finite_b(dev)
     torch.cuda.synchronize()
     say("18 slab", "spmv and spmm kernels vs plain within tolerance (f32, f64, bf16 values; "
-        "m = 1, 5, 8, 20, 129); worst rel err per case: "
-        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+        "m = 1, 5, 17, 128, 129); worst rel err per case: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items())
+        + f"; non-finite B: {nonfinite}")
 
     # 19 -----------------------------------------------------------------------
     host = {}
@@ -1140,17 +1191,30 @@ def spmm_phases(dev, g, times, launches):
     bsr = tsm.BSR.from_csr_device(csr, br=512, bc=128)
     torch.cuda.synchronize()
     host["from_csr_device"] = time.perf_counter() - t0
+    plans = {}
+
+    def timed_plan(label, mat, planner):
+        """Build the matrix's row-group plan (which its first spmm would
+        build) and time it."""
+        t0 = time.perf_counter()
+        plans[label] = planner(mat)
+        torch.cuda.synchronize()
+        host[f"{label} plan"] = time.perf_counter() - t0
+
+    timed_plan("BSR", bsr, ksp.spmm_plan)
     Y_bsr = tsm.spmm(bsr, B)
     t0 = time.perf_counter()
     pk = csr.to_slab_pack()
     torch.cuda.synchronize()
     host["to_slab_pack"] = time.perf_counter() - t0
+    timed_plan("SlabPack", pk, ksl.spmm_plan)
     y_pk = tsm.spmv(pk, x)
     Y_pk = tsm.spmm(pk, B)
     t0 = time.perf_counter()
     sl = csr.to_slab()
     torch.cuda.synchronize()
     host["to_slab"] = time.perf_counter() - t0
+    timed_plan("SlabELL", sl, ksl.spmm_plan)
     y_sl = tsm.spmv(sl, x)
     Y_sl = tsm.spmm(sl, B)
     with tempfile.TemporaryDirectory() as td:
@@ -1178,6 +1242,10 @@ def spmm_phases(dev, g, times, launches):
     y_strip = tsm.spmv(csr.to_strip(), x)
     errs = {"BSR kernel vs plain": compare("bsr_spmm", Y_bsr, ksp.bsr_spmm_ref(bsr, B), 1e-5,
                                            "fem bsr kernel vs plain"),
+            "BSR kernel vs plan walk": compare(None, Y_bsr, krg.walk(plans["BSR"], B), 1e-5,
+                                               "fem bsr kernel vs its plan's walk"),
+            "pack kernel vs plan walk": compare(None, Y_pk, krg.walk(plans["SlabPack"], B),
+                                                1e-5, "fem pack kernel vs its plan's walk"),
             "BSR vs CSR spmm": compare(None, Y_bsr, Y_stream, 1e-5, "fem spmm BSR vs CSR"),
             "pack spmv kernel vs plain": compare("slab_spmv", y_pk,
                                                  ksl.slab_pack_spmv_ref(pk, x), 1e-5,
@@ -1198,6 +1266,9 @@ def spmm_phases(dev, g, times, launches):
     check(torch.equal(tsm.spmm(bsr, B), Y_bsr), "BSR spmm rerun differs")
     check(torch.equal(tsm.spmv(pk, x), y_pk), "SlabPack spmv rerun differs")
     check(torch.equal(tsm.spmm(pk, B), Y_pk), "SlabPack spmm rerun differs")
+    check(torch.equal(tsm.spmm(sl, B), Y_sl), "SlabELL spmm rerun differs")
+    for label, plan in plans.items():
+        check(plan.nnz == nnz, f"the {label} plan holds {plan.nnz} of {nnz} entries")
     parts = [p.c_total for p in pk.parts]
     say("19 fem spmm", f"fem_block_band·2e-2: {n} rows, {nnz} entries, longest row "
         f"{int(np.diff(fem.indptr).max())}; BSR 512x128: {bsr.n_tiles} tiles, "
@@ -1209,31 +1280,53 @@ def spmm_phases(dev, g, times, launches):
         f"{sl.slab_windows} windows, nse {sl.nse}; checkpoint {npz_mb:.1f} MB; Y[:256, :8] "
         f"vs scipy {spot:.2e}; rel errs: " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f"; reruns bitwise equal; launches {({k: launches[k] for k in ('bsr_spmm', 'slab_spmv', 'slab_spmm')})}")
+    for label, plan in plans.items():
+        say("19 fem spmm", plan_line(label, plan, host[f"{label} plan"]))
 
     # 20 -----------------------------------------------------------------------
     del Y_stream, Y_sl
-    stored = ksp.bsr_spmm_flops(bsr, m_rhs)
     useful = 2 * nnz * m_rhs
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksp.bsr_spmm(bsr, B),
-                                           lambda: ksp.bsr_spmm_ref(bsr, B), 5)
     A_lib = torch_csr(csr)
-    lib_mm = library_ms(lambda: torch.sparse.mm(A_lib, B), 5)
-    bsr_layout = nbytes(bsr.blocks, bsr.block_rows, bsr.block_cols) + 2 * n * m_rhs * 4
-    b_ms, _ = record(times, "bsr_spmm", k_ms, p_ms, need_bytes(nnz, csr.shape, m_rhs),
-                     useful, lib_mm)
-    note_steps(times, "bsr_spmm", per_step(
-        lambda: ksp.LAUNCHES, lambda j: [tsm.spmm(bsr, B) for _ in range(j)], 1)["bsr_spmm"],
-        "spmm(BSR, B) product")
-    d_ms = device_us(lambda: ksp.bsr_spmm(bsr, B), 5, "bsr_spmm_kernel",
-                     lambda: ksp.LAUNCHES["bsr_spmm"]) / 1e3
-    say("20 times", f"bsr spmm fem 512x128 m=128 f32: kernel {k_ms:.4f} ms per call runs "
-        f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler): {stored / d_ms / 1e9:.3f} "
-        f"Tflop/s of the stored blocks, {useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain "
-        f"{p_ms:.4f} ms runs {p_runs} ({stored / p_ms / 1e9:.3f} and "
-        f"{useful / p_ms / 1e9:.4f} Tflop/s); bound {b_ms:.4f} ms; torch.sparse.mm on the "
-        f"CSR {lib_mm} ms; {bsr_layout / 1e6 / k_ms:.1f} GB/s of the layout's {bsr_layout} "
-        "bytes")
+    lib_mm = library_ms(lambda: torch.sparse.mm(A_lib, B), 20)
+    need_mm = need_bytes(nnz, csr.shape, m_rhs)
+
+    def spmm_times(row, name, label, mat, kernel_fn, plain_fn, plain_iters):
+        """Time one SpMM wrapper at m = 128 into ``row[name]`` (kernel,
+        plain, bound, library, launches per product) and print it."""
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kernel_fn(mat, B),
+                                               lambda: plain_fn(mat, B), 20, plain_iters)
+        b_ms, _ = record(row, name, k_ms, p_ms, need_mm, useful, lib_mm)
+        counts = ksp.LAUNCHES if name == "bsr_spmm" else ksl.LAUNCHES
+        per = note_steps(row, name, per_step(
+            lambda: counts, lambda j: [tsm.spmm(mat, B) for _ in range(j)], 1)[name],
+            f"spmm({label}, B) product")
+        d_ms = device_us(lambda: kernel_fn(mat, B), 20, "rowgroup_spmm_kernel",
+                         lambda: counts[name]) / 1e3
+        moved = plans[label].nbytes + 2 * n * m_rhs * 4        # the plan, B and Y once each
+        say("20 times", f"{label} spmm fem m=128 f32 ({name}): kernel {k_ms:.4f} ms per call "
+            f"runs {k_runs}, of it {d_ms:.4f} ms on the device (profiler): "
+            f"{useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m, {moved / 1e6 / d_ms:.1f} GB/s of "
+            f"the plan, B and Y ({moved} bytes); plain {p_ms:.4f} ms runs {p_runs}; bound "
+            f"{b_ms:.4f} ms; torch.sparse.mm on the CSR {lib_mm} ms; launches per product {per}")
+
+    spmm_times(times, "bsr_spmm", "BSR", bsr, ksp.bsr_spmm, ksp.bsr_spmm_ref, 5)
     del bsr, Y_bsr
+    spmm_times(times, "slab_spmm", "SlabPack", pk, ksl.slab_pack_spmm, ksl.slab_pack_spmm_ref, 2)
+    slab_ell = {}                  # the SlabELL row: the same kernel, so not a JSON kernel row
+    spmm_times(slab_ell, "slab_spmm", "SlabELL", sl, ksl.slab_spmm, ksl.slab_spmm_ref, 2)
+    say("20 times", "SlabELL spmm row " + json.dumps(slab_ell["slab_spmm"]))
+    widths = []
+    for m_w, dt in ((1, torch.float32), (17, torch.float32), (129, torch.float32),
+                    (128, torch.float64)):
+        B_w = B[:, :1].repeat(1, m_w).to(dt)
+        A_w = A_lib if dt == torch.float32 else torch_csr(csr.astype(dt))
+        compare("slab_spmm", ksl.slab_pack_spmm(pk, B_w), krg.walk(plans["SlabPack"], B_w),
+                TOL[dt]["y"], f"fem pack spmm m={m_w} {dt} vs its plan's walk")
+        k_w = cuda_ms(lambda: ksl.slab_pack_spmm(pk, B_w), 20)
+        lib_w = cuda_ms(lambda: torch.sparse.mm(A_w, B_w), 20)
+        widths.append(f"m={m_w} {str(dt)[6:]} kernel {k_w:.4f} torch.sparse.mm {lib_w:.4f}")
+    say("20 times", "SlabPack spmm at other widths, ms per call: " + "; ".join(widths))
+
     mb = pk.spmv_traffic_bytes() / 1e6
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmv(pk, x),
                                            lambda: ksl.slab_pack_spmv_ref(pk, x), 20)
@@ -1251,28 +1344,16 @@ def spmm_phases(dev, g, times, launches):
         f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; "
         f"StripELL kernel on the same operator {s_ms:.4f} ms; bound {b_ms:.4f} ms; torch.mv "
         f"on the CSR {lib} ms; launches per product {per_v}")
+    mb = sl.spmv_traffic_bytes() / 1e6
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_spmv(sl, x),
                                            lambda: ksl.slab_spmv_ref(sl, x), 20)
-    m_ms = cuda_ms(lambda: ksl.slab_spmm(sl, B), 3)
+    d_ms = device_us(lambda: ksl.slab_spmv(sl, x), 20, "slab_spmv_kernel",
+                     lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
     bv_ms, _ = bound_ms(need_bytes(nnz, csr.shape), 2 * nnz)
-    bm_ms, _ = bound_ms(need_bytes(nnz, csr.shape, m_rhs), useful)
-    say("20 times", f"SlabELL fem f32: spmv kernel {k_ms:.4f} ms per call runs {k_runs}, "
-        f"plain {p_ms:.4f} ms runs {p_runs}, bound {bv_ms:.4f} ms; spmm m=128 kernel "
-        f"{m_ms:.4f} ms per call, bound {bm_ms:.4f} ms")
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmm(pk, B),
-                                           lambda: ksl.slab_pack_spmm_ref(pk, B), 3)
-    b_ms, _ = record(times, "slab_spmm", k_ms, p_ms, need_bytes(nnz, csr.shape, m_rhs),
-                     useful, lib_mm)
-    per_m = note_steps(times, "slab_spmm", per_step(
-        lambda: ksl.LAUNCHES, lambda j: [tsm.spmm(pk, B) for _ in range(j)], 1)["slab_spmm"],
-        "spmm(SlabPack, B) product")
-    d_ms = device_us(lambda: ksl.slab_pack_spmm(pk, B), 3, "slab_spmm_kernel",
-                     lambda: ksl.LAUNCHES["slab_spmm"]) / 1e3
-    say("20 times", f"SlabPack spmm fem m=128 f32: kernel {k_ms:.4f} ms per call runs "
-        f"{k_runs}, of it {d_ms:.4f} ms on the device (profiler), "
-        f"{useful / d_ms / 1e9:.4f} Tflop/s of 2·nnz·m; plain {p_ms:.4f} ms runs {p_runs}; "
-        f"bound {b_ms:.4f} ms; torch.sparse.mm on the CSR {lib_mm} ms; launches per product "
-        f"{per_m}")
+    say("20 times", f"SlabELL spmv fem f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
+        f"GB/s of {mb:.1f} MB spmv_traffic_bytes) runs {k_runs}, of it {d_ms:.4f} ms on the "
+        f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; bound "
+        f"{bv_ms:.4f} ms; torch.mv on the CSR {lib} ms")
     say("20 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
 

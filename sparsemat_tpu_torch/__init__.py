@@ -8,7 +8,7 @@ class), ``WELL`` (windowed ELL, the general-matrix format), ``ELL``, ``SELL``
 or ``GELL``, or let ``auto_format`` choose → ``spmv`` / ``spmv_dot`` /
 ``spmv_chain`` / ``rmatvec`` → the solvers (CG/PCG, BiCGStab, GMRES,
 Chebyshev, Jacobi, mixed-precision refinement) and the Jacobi / block-Jacobi
-preconditioners; checkpoints of matrices and solves in the JAX package's
+preconditioners; the bilinear form ``inner_prod(mat, l, r)``; checkpoints of matrices and solves in the JAX package's
 file format (``checkpoint``); ``spmm`` (``A @ B``) over ``BSR``, the slab
 formats, DIA, GELL, ELL and the CSR/COO stream.  Formats are frozen
 dataclasses of tensors on one device: an entry point that builds tensors
@@ -24,16 +24,18 @@ from . import checkpoint, formats, io, ops, solvers, vectors
 from .builder import SparseBuilder
 from .formats import (BSR, COO, CSR, DIA, ELL, GELL, SELL, WELL, RouteStream, SlabELL,
                       SlabPack, SlabStream, SparseFormat, StripELL, auto_format)
-from .ops import rmatvec, spmm, spmv, spmv_chain, spmv_dot
-from .solvers import GMRES, BiCGStab, ConjugateGradient, Jacobi, SolveInfo
+from .ops import inner_prod, rmatvec, spmm, spmv, spmv_chain, spmv_dot
+from .solvers import (GMRES, BiCGStab, BlockJacobiPreconditioner, ConjugateGradient, Jacobi,
+                      JacobiPreconditioner, SolveInfo)
 from .types import DEFAULT_INDEX_DTYPE
-from .vectors import DenseVec, SparseVec, inner_prod, norm, norm_squared
+from .vectors import DenseVec, SparseVec, norm, norm_squared
 
 __all__ = [
     "COO", "CSR", "DIA", "ELL", "SELL", "BSR", "GELL", "RouteStream", "StripELL",
     "SlabELL", "SlabPack", "SlabStream", "WELL", "SparseFormat", "SparseBuilder",
     "auto_format",
-    "ConjugateGradient", "Jacobi", "BiCGStab", "GMRES", "SolveInfo", "solvers",
+    "ConjugateGradient", "Jacobi", "BiCGStab", "GMRES",
+    "JacobiPreconditioner", "BlockJacobiPreconditioner", "SolveInfo", "solvers",
     "spmv", "spmv_dot", "spmv_chain", "spmm", "rmatvec",
     "DenseVec", "SparseVec", "inner_prod", "norm", "norm_squared",
     "checkpoint", "formats", "io", "ops", "vectors", "eye", "from_dense",

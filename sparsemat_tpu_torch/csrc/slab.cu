@@ -1,28 +1,28 @@
-// SlabELL / SlabPack SpMV and SpMM kernels, and the SlabStream SpMV kernel
-// (below slab_spmm_kernel), for Hopper (sm_90a), bound to Python with
-// ctypes through the plain C functions at the end of this file.
+// SlabELL / SlabPack SpMV kernel, and the SlabStream SpMV kernel (below
+// it), for Hopper (sm_90a), bound to Python with ctypes through the plain C
+// functions at the end of this file.  The slab SpMM is the row-group kernel
+// of csrc/spmm.cu.
 //
 // Replaces sparsemat_tpu/kernels/spmv.py: slab_spmv_pallas (one grid step
 // per group of rb-row blocks, x resident as 128-column windows, one gather
 // and FMA per bucket slot) and slab_pack_spmv_pallas (one call per class
 // part, the static block permutation _slab_pack_combine, the overflow pack
-// added on top); and sparsemat_tpu/kernels/spmm.py: slab_spmm_pallas (the
-// same walk over mc columns of B per pass) and slab_pack_spmm_pallas.
+// added on top).
 //
 // For each block b of each part and each row r of the block:
-//   Y[block_ids[b]*rb + r, j] (+)= sum_{s < C} vals[b,s,r] *
-//       B[(win_lo[b] + w_of[s]) * 128 + lidx[b,s,r], j]
+//   y[block_ids[b]*rb + r] (+)= sum_{s < C} vals[b,s,r] *
+//       x[(win_lo[b] + w_of[s]) * 128 + lidx[b,s,r]]
 // where w_of[s] is the slab window of slot s (the part's buckets laid out
 // per slot).  A column >= n_cols reads 0; rows >= n_rows (the ragged last
-// block) are dropped.  The SpMV is the case m = 1.
+// block) are dropped.
 //
 // What the TPU kernels needed and these do not: x padded to x_windows() and
 // held in VMEM as (n_win, 128) rows, a dynamic sublane slice per bucket and
-// a 128-lane take_along per sublane group, (8, 128) register tiles, blocks
-// batched per grid step to amortise step overhead, and mc bounded by VMEM.
-// A GPU thread gathers B directly with a bound check.
+// a 128-lane take_along per sublane group, (8, 128) register tiles, and
+// blocks batched per grid step to amortise step overhead.  A GPU thread
+// gathers x directly with a bound check.
 //
-// Design (simple kernels that are right; staging B windows in shared
+// Design (a simple kernel that is right; staging x windows in shared
 // memory and vector loads are later work):
 //   * one launch per level (the parts, then each overflow pack) over all
 //     blocks of all its parts: a flat grid of one CTA per block, a device
@@ -35,16 +35,13 @@
 //     _slab_pack_combine: every global block is in exactly one part, so no
 //     atomics; the overflow level's launch adds into Y after the parts'
 //     launch on the same stream, in a fixed order, so reruns are bitwise
-//     equal;
-//   * SpMM: MC columns of B per thread (a grid dimension over column
-//     groups), so each vals/lidx load serves MC FMAs; B and Y row-major.
+//     equal.
 //
-// What bounds them on an H100: the SpMV streams vals and lidx once (8 bytes
+// What bounds it on an H100: the SpMV streams vals and lidx once (8 bytes
 // a slot in f32, padding included: 10,609,572 of the 109,884,416 slots of
 // the pwtk-class SlabPack hold entries) and gathers x within 128-column
-// windows that the
-// block's rows share, so its reads of x hit L1/L2 after the first touch.
-// The SpMM reads the tiles m/MC times and gathers MC values of B per slot.
+// windows that the block's rows share, so its reads of x hit L1/L2 after
+// the first touch.
 
 #include <cuda_runtime.h>
 
@@ -66,13 +63,11 @@ enum PartField {
   kPartFields
 };
 
-template <typename T, int MC>
-__device__ __forceinline__ void slab_block(const int64_t* __restrict__ parts,
-                                           const int* __restrict__ part_of,
-                                           const int* __restrict__ block_ids,
-                                           int64_t n_rows, int64_t n_cols,
-                                           int64_t m, const T* __restrict__ B,
-                                           T* __restrict__ Y, int accumulate) {
+template <typename T>
+__global__ void __launch_bounds__(1024)
+slab_spmv_kernel(const int64_t* __restrict__ parts, const int* __restrict__ part_of,
+                 const int* __restrict__ block_ids, int64_t n_rows, int64_t n_cols,
+                 const T* __restrict__ x, T* __restrict__ y, int accumulate) {
   const int gb = blockIdx.x;
   const int r = threadIdx.x;
   const int rb = blockDim.x;
@@ -86,45 +81,17 @@ __device__ __forceinline__ void slab_block(const int64_t* __restrict__ parts,
   const int64_t c_total = P[kC];
   const int64_t b = gb - P[kFirst];
   const int64_t wl = __ldg(reinterpret_cast<const int*>(P[kWinLo]) + b);
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * MC;
 
   const T* vb = vals + b * c_total * rb + r;
   const int* lb = lidx + b * c_total * rb + r;
-  T acc[MC];
-#pragma unroll
-  for (int j = 0; j < MC; ++j) acc[j] = T(0);
+  T acc = T(0);
   for (int64_t s = 0; s < c_total; ++s) {
     const T v = __ldg(vb + s * rb);
     const int64_t col = (wl + __ldg(wof + s)) * WINDOW + __ldg(lb + s * rb);
-    const bool inside = col < n_cols;
-    const T* brow = B + (inside ? col * m + j0 : 0);
-#pragma unroll
-    for (int j = 0; j < MC; ++j) {
-      const T bv = (inside && j0 + j < m) ? __ldg(brow + j) : T(0);
-      acc[j] = fma(v, bv, acc[j]);
-    }
+    const T xv = col < n_cols ? __ldg(x + col) : T(0);
+    acc = fma(v, xv, acc);
   }
-  T* yrow = Y + row * m + j0;
-#pragma unroll
-  for (int j = 0; j < MC; ++j) {
-    if (j0 + j < m) yrow[j] = accumulate ? yrow[j] + acc[j] : acc[j];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(1024)
-slab_spmv_kernel(const int64_t* __restrict__ parts, const int* __restrict__ part_of,
-                 const int* __restrict__ block_ids, int64_t n_rows, int64_t n_cols,
-                 const T* __restrict__ x, T* __restrict__ y, int accumulate) {
-  slab_block<T, 1>(parts, part_of, block_ids, n_rows, n_cols, 1, x, y, accumulate);
-}
-
-template <typename T, int MC>
-__global__ void __launch_bounds__(1024)
-slab_spmm_kernel(const int64_t* __restrict__ parts, const int* __restrict__ part_of,
-                 const int* __restrict__ block_ids, int64_t n_rows, int64_t n_cols,
-                 int64_t m, const T* __restrict__ B, T* __restrict__ Y, int accumulate) {
-  slab_block<T, MC>(parts, part_of, block_ids, n_rows, n_cols, m, B, Y, accumulate);
+  y[row] = accumulate ? y[row] + acc : acc;
 }
 
 // SlabStream SpMV.  Replaces sparsemat_tpu/kernels/spmv.py:
@@ -140,7 +107,7 @@ slab_spmm_kernel(const int64_t* __restrict__ parts, const int* __restrict__ part
 // (chunk_ptr, from the freeze's block-sorted chunks) and, for a layout
 // whose chunks arrive out of block order, a stable permutation (order).
 // One CTA per row block, rb threads, one per row: each chunk's (8, rb) tile
-// is row-contiguous, so every load coalesces (the shape of slab_block
+// is row-contiguous, so every load coalesces (the shape of slab_spmv_kernel
 // above); each thread sums its row over the block's chunks in stream order
 // and writes y once: no atomics, reruns bitwise equal.  Bound: vals, lidx,
 // win_id and blk_id once plus x and y, over 3.35 TB/s (about 0.219 ms on
@@ -190,59 +157,16 @@ int launch_stream(const void* vals, const void* lidx, const void* win_id,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_grid(int n_blocks, int rb, int64_t groups) {
-  return n_blocks <= 0 || rb <= 0 || rb > 1024 || rb % 32 || groups <= 0 || groups > 65535;
-}
-
 template <typename T>
 int launch_spmv(const void* parts, const void* part_of, const void* block_ids,
                 int n_blocks, int rb, int64_t n_rows, int64_t n_cols,
                 const void* x, void* y, int accumulate, void* stream) {
-  if (bad_grid(n_blocks, rb, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks <= 0 || rb <= 0 || rb > 1024 || rb % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   slab_spmv_kernel<T><<<n_blocks, rb, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(parts), static_cast<const int*>(part_of),
       static_cast<const int*>(block_ids), n_rows, n_cols,
       static_cast<const T*>(x), static_cast<T*>(y), accumulate);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int MC>
-void spmm_mc(const void* parts, const void* part_of, const void* block_ids,
-             int n_blocks, int rb, int64_t n_rows, int64_t n_cols, int64_t m,
-             const void* B, void* Y, int accumulate, cudaStream_t st) {
-  const dim3 grid(n_blocks, static_cast<unsigned>((m + MC - 1) / MC));
-  slab_spmm_kernel<T, MC><<<grid, rb, 0, st>>>(
-      static_cast<const int64_t*>(parts), static_cast<const int*>(part_of),
-      static_cast<const int*>(block_ids), n_rows, n_cols, m,
-      static_cast<const T*>(B), static_cast<T*>(Y), accumulate);
-}
-
-template <typename T>
-int launch_spmm(const void* parts, const void* part_of, const void* block_ids,
-                int n_blocks, int rb, int64_t n_rows, int64_t n_cols, int64_t m,
-                int mc, const void* B, void* Y, int accumulate, void* stream) {
-  if (m <= 0 || bad_grid(n_blocks, rb, (m + mc - 1) / mc))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mc) {
-    case 1:
-      spmm_mc<T, 1>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m, B, Y, accumulate, st);
-      break;
-    case 2:
-      spmm_mc<T, 2>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m, B, Y, accumulate, st);
-      break;
-    case 4:
-      spmm_mc<T, 4>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m, B, Y, accumulate, st);
-      break;
-    case 8:
-      spmm_mc<T, 8>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m, B, Y, accumulate, st);
-      break;
-    case 16:
-      spmm_mc<T, 16>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m, B, Y, accumulate, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,22 +192,6 @@ int smt_slab_spmv_f64(const void* parts, const void* part_of, const void* block_
                       const void* x, void* y, int accumulate, void* stream) {
   return launch_spmv<double>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols,
                              x, y, accumulate, stream);
-}
-
-// B: (n_cols, m) and Y: (n_rows, m) row-major; mc: 1, 2, 4, 8 or 16 columns
-// per thread.
-int smt_slab_spmm_f32(const void* parts, const void* part_of, const void* block_ids,
-                      int n_blocks, int rb, int64_t n_rows, int64_t n_cols, int64_t m,
-                      int mc, const void* B, void* Y, int accumulate, void* stream) {
-  return launch_spmm<float>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m,
-                            mc, B, Y, accumulate, stream);
-}
-
-int smt_slab_spmm_f64(const void* parts, const void* part_of, const void* block_ids,
-                      int n_blocks, int rb, int64_t n_rows, int64_t n_cols, int64_t m,
-                      int mc, const void* B, void* Y, int accumulate, void* stream) {
-  return launch_spmm<double>(parts, part_of, block_ids, n_blocks, rb, n_rows, n_cols, m,
-                             mc, B, Y, accumulate, stream);
 }
 
 // SlabStream: vals (N, 8, rb) T; lidx (N, 8, rb) int32; win_id (N,) int32;

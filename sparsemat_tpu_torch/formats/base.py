@@ -33,6 +33,11 @@ def to_device(arr, dtype=None, device=None) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy (bf16, which numpy lacks, as f32)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 class SparseFormat:
     """Mixin providing the operator surface (``@``, ``*`` by a scalar,
     ``mvp``) and the structure queries every format shares."""
@@ -52,10 +57,7 @@ class SparseFormat:
             cache = {}
             object.__setattr__(self, "_host_cache", cache)
         if name not in cache:
-            t = getattr(self, name)
-            if t.dtype == torch.bfloat16:
-                t = t.float()
-            cache[name] = t.cpu().numpy()
+            cache[name] = _numpy(getattr(self, name))
         return cache[name]
 
     # -- canonical views ------------------------------------------------------
@@ -164,6 +166,12 @@ class SparseFormat:
     def scale(self, scalar):
         raise NotImplementedError
 
+    def inner_prod(self, l, r):
+        """Bilinear form lᵀ A r (``ops.inner_prod``)."""
+        from ..ops import inner_prod
+
+        return inner_prod(self, l, r)
+
     def astype(self, dtype) -> "SparseFormat":
         """Same structure, values cast to ``dtype``: floating tensor fields
         only; index and mask fields keep their types (the mixed-precision
@@ -175,6 +183,28 @@ class SparseFormat:
             if isinstance(t, torch.Tensor) and t.is_floating_point():
                 updates[f.name] = t.to(dtype)
         return dataclasses.replace(self, **updates)  # type: ignore[type-var]
+
+    # -- performance model ------------------------------------------------------
+    #: tensor fields one SpMV streams; None means every tensor field.  Formats
+    #: name theirs where bookkeeping arrays (a CSR's indptr, a WELL's
+    #: row_cnt) are never read by the product, as the JAX package does.
+    _spmv_read_fields: Tuple[str, ...] | None = None
+
+    def spmv_traffic_bytes(self) -> int:
+        """The layout's bytes for one SpMV (the JAX package's count): every
+        array the product streams, padding slots included, read once, x
+        read once and y written once."""
+        fields = self._spmv_read_fields
+        if fields is None:
+            fields = tuple(f.name for f in dataclasses.fields(self))  # type: ignore[arg-type]
+        total = 0
+        for name in fields:
+            t = getattr(self, name)
+            if isinstance(t, torch.Tensor):
+                total += t.numel() * t.element_size()
+        x_bytes = self.shape[1] * self.dtype.itemsize
+        y_bytes = self.shape[0] * accum_dtype(self.dtype).itemsize
+        return int(total + x_bytes + y_bytes)
 
     # -- structure queries ------------------------------------------------------
     @property
@@ -198,6 +228,30 @@ class SparseFormat:
         out = torch.zeros(self.shape, dtype=self.dtype, device=coo.vals.device)
         return out.index_put_((coo.rows.long()[valid], coo.cols.long()[valid]),
                               coo.vals[valid], accumulate=True)
+
+    # -- host-side point access (the JAX package's, through to_csr / to_coo) --
+    def __iter__(self):
+        """(row, col, val) over the stored entries, row-major and column-
+        sorted within a row, skipping empty rows."""
+        csr = self.to_csr()
+        indptr = csr.host("indptr")
+        indices = csr.host("indices")
+        data = csr.host("data")
+        for i in range(csr.n_rows):
+            for p in range(int(indptr[i]), int(indptr[i + 1])):
+                yield i, int(indices[p]), data[p]
+
+    def get(self, i: int, j: int):
+        """A[i, j] as a numpy scalar: the sum of the stored entries at
+        (i, j), 0 where there is none.  O(nse) on the host."""
+        coo = self.to_coo()
+        r, c, v = (_numpy(t) for t in (coo.rows, coo.cols, coo.vals))
+        hit = (r == i) & (c == j)
+        return v[hit].sum() if hit.any() else v.dtype.type(0)
+
+    def __getitem__(self, ij):
+        i, j = ij
+        return self.get(i, j)
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(shape={self.shape}, nse={self.nse}, "

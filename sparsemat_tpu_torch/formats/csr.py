@@ -28,6 +28,8 @@ class CSR(SparseFormat):
     ``row_ids``: (nse,) expanded row per entry (tail padding = n_rows).
     """
 
+    _spmv_read_fields = ("data", "indices", "row_ids")  # the stream path skips indptr
+
     indptr: torch.Tensor
     indices: torch.Tensor
     data: torch.Tensor

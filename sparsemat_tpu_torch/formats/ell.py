@@ -28,6 +28,8 @@ class ELL(SparseFormat):
     ``n_rows_padded`` is n_rows rounded up to ``ROW_PAD``.
     """
 
+    _spmv_read_fields = ("cols", "vals")  # row_nnz is freeze-time bookkeeping
+
     cols: torch.Tensor
     vals: torch.Tensor
     row_nnz: torch.Tensor

@@ -30,7 +30,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..types import accum_dtype
 from .base import SparseFormat, to_device
 
 LANE = 128
@@ -124,6 +123,8 @@ class RouteStream(SparseFormat):
     ``lpos``/``ppos``/``pmask``/``segmask`` (n_regions, 128, 128) and
     ``wrow`` (n_regions, 128), whose value n_ywin marks an unused row.
     Stored zeros are kept (their slots route like any other)."""
+
+    _spmv_read_fields = tuple(a for a in ARRAYS if a != "a_rows")  # a_rows: canonical views only
 
     a_vals: torch.Tensor
     a_lidx: torch.Tensor
@@ -508,13 +509,5 @@ class RouteStream(SparseFormat):
         ``a_rows``), the staging round trip (counted at 4 bytes a slot, as
         the JAX package counts it), x read once and y written once.  The
         denominator of the route kernels' GB/s."""
-        total = 0
-        for name in ARRAYS:
-            if name != "a_rows":
-                arr = getattr(self, name)
-                total += arr.numel() * arr.element_size()
         staging = (self.n_regions * REG_ROWS + SUP_ROWS) * LANE * 4
-        total += 2 * staging
-        total += self.shape[1] * self.dtype.itemsize
-        total += self.shape[0] * accum_dtype(self.dtype).itemsize
-        return int(total)
+        return super().spmv_traffic_bytes() + 2 * staging

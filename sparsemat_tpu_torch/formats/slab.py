@@ -90,6 +90,8 @@ class SlabELL(SparseFormat):
     nonzero value marks a stored entry), ``buckets`` ((offset, height), ...)
     per slab window."""
 
+    _spmv_read_fields = ("vals", "lidx", "win_lo")  # bucket_cnt: round trips only
+
     vals: torch.Tensor
     lidx: torch.Tensor
     win_lo: torch.Tensor
@@ -450,7 +452,8 @@ class SlabPack(SparseFormat):
         its x and y, then one x read and one y write."""
         total = 0
         for p in self.parts:
-            for arr in (p.vals, p.lidx, p.win_lo):
+            for name in p._spmv_read_fields:
+                arr = getattr(p, name)
                 total += arr.numel() * arr.element_size()
         xb = self.shape[1] * self.dtype.itemsize
         yb = self.shape[0] * accum_dtype(self.dtype).itemsize
@@ -468,6 +471,8 @@ class SlabStream(SparseFormat):
     row block per chunk (chunks in (block, window) order); ``cnt8`` (N, rb)
     int32 stored entries per (chunk, row): sublane < count marks a stored
     entry.  The nnz = 0 layout is one zero chunk."""
+
+    _spmv_read_fields = ("vals", "lidx", "win_id", "blk_id")  # cnt8: round trips only
 
     vals: torch.Tensor
     lidx: torch.Tensor
@@ -586,11 +591,3 @@ class SlabStream(SparseFormat):
 
     def x_windows(self) -> int:
         return max(-(-self.shape[1] // WINDOW), 1)
-
-    def spmv_traffic_bytes(self) -> int:
-        """The layout's bytes per SpMV, as the sibling formats count: vals,
-        lidx, win_id and blk_id once, x read once and y written once."""
-        total = sum(t.numel() * t.element_size()
-                    for t in (self.vals, self.lidx, self.win_id, self.blk_id))
-        return int(total + self.shape[1] * self.dtype.itemsize
-                   + self.shape[0] * accum_dtype(self.dtype).itemsize)

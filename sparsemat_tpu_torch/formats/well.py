@@ -28,7 +28,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..types import accum_dtype
 from .base import SparseFormat, to_device
 
 ROW_BLOCK = 8
@@ -63,6 +62,8 @@ class WELL(SparseFormat):
     ``tile_rows``/``tile_wins`` (n_tiles,) int32 row block and window per
     tile, ``row_cnt`` (n_tiles, 8) int32 or None (then a nonzero value marks
     a stored entry)."""
+
+    _spmv_read_fields = ("vals", "lidx", "tile_rows", "tile_wins")  # row_cnt: round trips only
 
     vals: torch.Tensor
     lidx: torch.Tensor
@@ -220,11 +221,3 @@ class WELL(SparseFormat):
     def fill_ratio(self) -> float:
         """Stored entries / slots."""
         return self.n_non_zero_entries() / max(self.nse, 1)
-
-    def spmv_traffic_bytes(self) -> int:
-        """The layout's bytes per SpMV (the JAX package's count): vals, lidx,
-        tile_rows and tile_wins once, x read once and y written once."""
-        total = sum(t.numel() * t.element_size()
-                    for t in (self.vals, self.lidx, self.tile_rows, self.tile_wins))
-        return int(total + self.shape[1] * self.dtype.itemsize
-                   + self.shape[0] * accum_dtype(self.dtype).itemsize)

@@ -5,22 +5,29 @@ the slab halves of two JAX modules: ``sparsemat_tpu/kernels/spmv.py``
 and their ``*_xla`` oracles) and ``sparsemat_tpu/kernels/spmm.py``
 (``slab_spmm_pallas``, ``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
 
-The CUDA kernels live in ``csrc/slab.cu`` (see the note there for what they
+The SpMV kernels live in ``csrc/slab.cu`` (see the note there for what they
 replace and what bounds them): one launch per level of the matrix (its
 parts, then each overflow pack) over every block of every part, each result
 written straight to its global rows, the overflow's added on top.  The TPU's
-per-part calls, its ``_slab_pack_combine`` permutation and its VMEM-bounded
-column grouping (``slab_spmm_mc``) have no counterpart.  The plain versions
-keep the per-part loop and the permutation, so the two are independent.
-The SlabStream kernel is one launch of one CTA per row block over the
-block's chunks; the TPU's SMEM-sized splits, chunk groups and resident y
-have no counterpart.
+per-part calls and its ``_slab_pack_combine`` permutation have no
+counterpart.  The SlabStream kernel is one launch of one CTA per row block
+over the block's chunks; the TPU's SMEM-sized splits, chunk groups and
+resident y have no counterpart.  The SpMM does not read the padded layout:
+it launches the row-group kernel (``csrc/spmm.cu``) once per product over
+the matrix's compact plan (``kernels/_rowgroup.py``), which holds the
+stored entries of every part and of every overflow level, so a SlabPack
+with an overflow pack is one launch.  The plain versions keep the per-part
+loop and the permutation, so they and the kernels are independent.
 
 Dtypes: the values and x / B are cast to the accumulation dtype of the two
-(bf16/f16 to f32) before the launch; the kernels run in f32 or f64.  A
-wrapper takes the plain version only when its tensors lie on the CPU; on a
-CUDA tensor it launches its kernel or raises.  The layout is checked once
-per matrix and the launch plan cached on it (``_plan``).
+(bf16/f16 to f32) before the launch; the kernels run in f32 or f64.  One
+difference of the SpMM from its plain version: the kernel reads no padding
+slot, so where B holds inf or NaN in a row that a padding slot points at,
+it gives what a CSR SpMM gives (scipy, ``torch.sparse.mm``) and not the
+slot's 0·inf = NaN; for a finite B the two agree.  A wrapper takes the
+plain version only when its tensors lie on the CPU; on a CUDA tensor it
+launches its kernel or raises.  The layout is checked once per matrix and
+the launch plans cached on it (``_plan``, ``spmm_plan``).
 """
 
 from __future__ import annotations
@@ -33,15 +40,14 @@ import torch
 from ..formats.slab import SUBLANE, WINDOW, SlabELL, SlabPack, SlabStream
 from ..types import FLOAT_DTYPES, accum_dtype
 from .._build import load_cuda
+from . import _rowgroup
 from ._common import block_ranges, gather
 
 #: kernel launches (plain versions do not count); a SlabPack with an
-#: overflow pack launches twice per product
+#: overflow pack launches the SpMV twice per product, the SpMM once
 LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-#: columns of B per thread the SpMM kernel is built for
-_MC = (1, 2, 4, 8, 16)
 #: cap on the plain SpMM's materialised (slots, columns) gather of B
 _REF_GATHER_BUDGET = 1 << 29
 _lib = None
@@ -61,9 +67,6 @@ def _kernels() -> ctypes.CDLL:
         for s in _SUFFIX.values():
             fn = getattr(lib, f"smt_slab_spmv_{s}")
             fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp, vp, i32, vp]
-            fn.restype = i32
-            fn = getattr(lib, f"smt_slab_spmm_{s}")
-            fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, i32, vp, vp, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"smt_slab_stream_spmv_{s}")
             fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i64, i64, vp, vp, vp]
@@ -252,45 +255,67 @@ def _plan(mat) -> _Plan:
     return plan
 
 
-def _launch(mat, X: torch.Tensor, kind: str) -> torch.Tensor:
-    """Y = A @ X through the kernels, X a vector (``kind`` 'slab_spmv') or
-    an (n_cols, m) matrix ('slab_spmm')."""
-    n_rows, n_cols = mat.shape
+def _check_operand(mat, X: torch.Tensor, kind: str, want: tuple) -> None:
     if X.device != mat.data.device:
         raise ValueError(f"{kind}: matrix on {mat.data.device} and operand on "
                          f"{X.device}; the kernels need both on one CUDA device")
     if X.dtype not in FLOAT_DTYPES:
         raise TypeError(f"{kind}: the CUDA kernels take a float operand, got {X.dtype}")
-    want = (n_cols,) if kind == "slab_spmv" else (n_cols, X.shape[-1])
     if tuple(X.shape) != want or X.dim() != len(want):
         raise ValueError(f"{kind}: operand of shape {tuple(X.shape)} for a {mat.shape} "
                          f"matrix")
+
+
+def _launch_spmv(mat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through ``slab_spmv_kernel``, one launch per level."""
+    n_rows, n_cols = mat.shape
+    _check_operand(mat, x, "slab_spmv", (n_cols,))
     plan = _plan(mat)
-    adt = accum_dtype(torch.promote_types(mat.dtype, X.dtype))
-    X = X.to(adt).contiguous()
-    Y = torch.empty((n_rows,) + tuple(X.shape[1:]), dtype=adt, device=X.device)
-    if Y.numel() == 0:
-        return Y
+    adt = accum_dtype(torch.promote_types(mat.dtype, x.dtype))
+    x = x.to(adt).contiguous()
+    y = torch.empty((n_rows,), dtype=adt, device=x.device)
+    if y.numel() == 0:
+        return y
     lib = _kernels()
-    stream = torch.cuda.current_stream(X.device).cuda_stream
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     for i, lvl in enumerate(plan.levels):
         table, _casts = lvl.table_for(adt)
-        args = (table.data_ptr(), lvl.part_of.data_ptr(), lvl.block_ids.data_ptr(),
-                lvl.n_blocks, lvl.rb, n_rows, n_cols)
-        with torch.cuda.device(X.device):
-            if kind == "slab_spmv":
-                rc = getattr(lib, f"smt_slab_spmv_{_SUFFIX[adt]}")(
-                    *args, X.data_ptr(), Y.data_ptr(), int(i > 0), stream)
-            else:
-                m = X.shape[1]
-                mc = next((c for c in _MC if c >= m), _MC[-1])
-                rc = getattr(lib, f"smt_slab_spmm_{_SUFFIX[adt]}")(
-                    *args, m, mc, X.data_ptr(), Y.data_ptr(), int(i > 0), stream)
+        with torch.cuda.device(x.device):
+            rc = getattr(lib, f"smt_slab_spmv_{_SUFFIX[adt]}")(
+                table.data_ptr(), lvl.part_of.data_ptr(), lvl.block_ids.data_ptr(),
+                lvl.n_blocks, lvl.rb, n_rows, n_cols, x.data_ptr(), y.data_ptr(),
+                int(i > 0), stream)
         if rc != 0:
             msg = lib.smt_slab_error_string(rc).decode()
-            raise RuntimeError(f"{kind}: CUDA error {rc} ({msg})")
-        LAUNCHES[kind] += 1
-    return Y
+            raise RuntimeError(f"slab_spmv: CUDA error {rc} ({msg})")
+        LAUNCHES["slab_spmv"] += 1
+    return y
+
+
+def spmm_plan(mat) -> _rowgroup.Plan:
+    """The row-group plan of a SlabELL or SlabPack (every part and every
+    overflow level in one), built from ``to_coo`` on the matrix's device
+    at first use and cached on it."""
+    plan = mat.__dict__.get("_spmm_plan")
+    if plan is None:
+        coo = mat.to_coo()
+        plan = _rowgroup.build(coo.rows, coo.cols, coo.vals, mat.shape)
+        object.__setattr__(mat, "_spmm_plan", plan)
+    return plan
+
+
+def _launch_spmm(mat, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B through ``rowgroup_spmm_kernel``, one launch per product."""
+    _check_operand(mat, B, "slab_spmm", (mat.shape[1], B.shape[-1]))
+    parts = [p for parts, _, _ in _levels(mat) for p in parts]
+    dev = mat.data.device
+    if dev.type != "cuda" or any(t.device != dev for p in parts
+                                 for t in (p.vals, p.lidx, p.win_lo)):
+        raise ValueError(f"slab_spmm: the kernel needs every part on one CUDA device, "
+                         f"got {dev}")
+    if any(p.vals.dtype not in FLOAT_DTYPES for p in parts):
+        raise TypeError(f"slab_spmm: the CUDA kernel takes float values, got {mat.dtype}")
+    return _rowgroup.launch(spmm_plan(mat), B, LAUNCHES, "slab_spmm")
 
 
 def _on_cpu(mat, X) -> bool:
@@ -300,25 +325,26 @@ def _on_cpu(mat, X) -> bool:
 def slab_spmv(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over a SlabELL.  CUDA: one launch of ``slab_spmv_kernel``;
     CPU: the plain version."""
-    return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch(sl, x, "slab_spmv")
+    return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch_spmv(sl, x)
 
 
 def slab_pack_spmv(pack: SlabPack, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over a SlabPack.  CUDA: one launch of ``slab_spmv_kernel``
     over all parts, one more per overflow pack; CPU: the plain version."""
-    return slab_pack_spmv_ref(pack, x) if _on_cpu(pack, x) else _launch(pack, x, "slab_spmv")
+    return slab_pack_spmv_ref(pack, x) if _on_cpu(pack, x) else _launch_spmv(pack, x)
 
 
 def slab_spmm(sl: SlabELL, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B over a SlabELL.  CUDA: one launch of ``slab_spmm_kernel``;
-    CPU: the plain version."""
-    return slab_spmm_ref(sl, B) if _on_cpu(sl, B) else _launch(sl, B, "slab_spmm")
+    """Y = A @ B over a SlabELL.  CUDA: one launch of ``rowgroup_spmm_kernel``
+    over the plan; CPU: the plain version."""
+    return slab_spmm_ref(sl, B) if _on_cpu(sl, B) else _launch_spmm(sl, B)
 
 
 def slab_pack_spmm(pack: SlabPack, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B over a SlabPack.  CUDA: one launch of ``slab_spmm_kernel``
-    over all parts, one more per overflow pack; CPU: the plain version."""
-    return slab_pack_spmm_ref(pack, B) if _on_cpu(pack, B) else _launch(pack, B, "slab_spmm")
+    """Y = A @ B over a SlabPack.  CUDA: one launch of
+    ``rowgroup_spmm_kernel`` over the plan of all parts and overflow
+    levels; CPU: the plain version."""
+    return slab_pack_spmm_ref(pack, B) if _on_cpu(pack, B) else _launch_spmm(pack, B)
 
 
 class _StreamPlan:

@@ -1,62 +1,46 @@
-"""BSR SpMM: the CUDA kernel's wrapper, its plain version and launch counter
-(counterpart of the BSR half of ``sparsemat_tpu/kernels/spmm.py``; the slab
-SpMM is in ``kernels/slab.py``).
+"""BSR SpMM: the wrapper of the row-group CUDA kernel, its plain version and
+launch counter (counterpart of the BSR half of
+``sparsemat_tpu/kernels/spmm.py``; the slab SpMM is in ``kernels/slab.py``).
 
-Y = A @ B with A a BSR and B dense (n_cols, m).  The CUDA kernel lives in
-``csrc/bsr.cu`` (see the note there for what it replaces and what bounds
-it): each output sub-block is summed in registers over its block row's
-tiles and written once, so the TPU's first-visit zeroing, its column
-tiling of B and its chunked calls have no counterpart.  The plain version
-is the JAX package's ``bsr_spmm_xla``: a batched product of every block
-with its slice of B, then a segment sum over each block row's tiles.
+Y = A @ B with A a BSR and B dense (n_cols, m).  On a CUDA tensor the
+wrapper launches ``rowgroup_spmm_kernel`` (``csrc/spmm.cu``, see the note
+there for what it replaces and what bounds it) over the matrix's compact
+launch plan (``kernels/_rowgroup.py``): the stored entries only, built once
+per matrix on its device from the blocks (``occ`` where the freeze made
+one, nonzero values where it did not), cached on the matrix.  The zero
+slots of the blocks are not read, so the TPU's per-block MXU products, its
+first-visit zeroing and its chunked calls have no counterpart.  The plain
+version is the JAX package's ``bsr_spmm_xla``: a batched product of every
+block with its slice of B, then a segment sum over each block row's tiles.
 
-Dtypes: the blocks and B are cast to the accumulation dtype of the two
-(bf16/f16 to f32) before the launch, as the JAX wrapper casts them; the
-kernel runs in f32 or f64, with plain FMAs (no TF32), as the TPU kernel
-runs at ``Precision.HIGHEST``.  The wrapper takes the plain version only
-when its tensors lie on the CPU; on a CUDA tensor it launches the kernel
-or raises.  The tile order is checked once per matrix and the launch plan
-(the per-block-row tile pointer) cached on it.
+Dtypes: bf16/f16 blocks and B are computed in f32, f32 and f64 natively,
+with plain FMAs (no TF32), as the TPU kernel runs at
+``Precision.HIGHEST``.  One difference from the plain version: the kernel
+skips the zeros of a block that are not stored entries, so where B holds
+inf or NaN in a row that such a zero meets, it gives what a CSR SpMM gives
+(scipy, ``torch.sparse.mm``) and not the dense block's 0·inf = NaN; for a
+finite B the two agree.  The wrapper takes the plain version only when its
+tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..formats.bsr import BSR
 from ..types import FLOAT_DTYPES, accum_dtype
-from .._build import load_cuda
+from . import _rowgroup
 
 #: kernel launches (plain versions do not count)
 LAUNCHES = {"bsr_spmm": 0}
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_lib = None
+#: block slots whose stored-entry mask one step of the plan build holds
+_ENTRY_CHUNK = 1 << 28
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _kernels() -> ctypes.CDLL:
-    """The built and bound ``csrc/bsr.cu`` library."""
-    global _lib
-    if _lib is None:
-        lib = load_cuda("bsr")
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for s in _SUFFIX.values():
-            fn = getattr(lib, f"smt_bsr_spmm_{s}")
-            fn.argtypes = [vp, vp, vp, i32, i32, i32, i64, i64, i64, vp, vp, vp]
-            fn.restype = i32
-        lib.smt_bsr_error_string.argtypes = [i32]
-        lib.smt_bsr_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def _adt(bsr: BSR, B: torch.Tensor) -> torch.dtype:
@@ -98,57 +82,41 @@ def bsr_spmm_ref(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
 
 # --- the kernel ----------------------------------------------------------------
 
-def bsr_spmm_flops(bsr: BSR, m: int) -> int:
-    """Flops over the stored blocks (2·T·br·bc·m): what the kernel does."""
-    return 2 * bsr.blocks.numel() * int(m)
+def bsr_entries(bsr: BSR):
+    """(rows, cols, vals) of the stored entries, as ``to_coo`` counts them,
+    read from the blocks on their device a few hundred MB of mask at a
+    time (the 3.6 GB of a large low-fill freeze never leave the card)."""
+    t, br, bc = bsr.blocks.shape
+    step = max(_ENTRY_CHUNK // max(br * bc, 1), 1)
+    parts = []
+    for t0 in range(0, t, step):
+        blocks = bsr.blocks[t0:t0 + step]
+        stored = bsr.occ[t0:t0 + step] if bsr.occ is not None else blocks != 0
+        ti, r, k = torch.nonzero(stored, as_tuple=True)
+        parts.append((bsr.block_rows[t0 + ti].long() * br + r,
+                      bsr.block_cols[t0 + ti].long() * bc + k, blocks[ti, r, k]))
+    if not parts:
+        empty = torch.zeros(0, dtype=torch.int64, device=bsr.blocks.device)
+        return empty, empty, bsr.blocks.new_zeros(0)
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
-class _Plan:
-    """What one launch needs besides B, built once per matrix after the
-    tile order is checked: the per-block-row tile pointer (block_rows
-    ascending, within the matrix; block columns not negative)."""
-
-    def __init__(self, bsr: BSR):
-        if bsr.blocks.device.type != "cuda" or any(
-                t.device != bsr.blocks.device for t in (bsr.block_rows, bsr.block_cols)):
-            raise ValueError(f"bsr_spmm: the kernel needs blocks, block_rows and "
-                             f"block_cols on one CUDA device, got {bsr.blocks.device}")
-        if bsr.blocks.dtype not in FLOAT_DTYPES:
-            raise TypeError(f"bsr_spmm: the CUDA kernel takes float blocks, got "
-                            f"{bsr.blocks.dtype}")
-        t, br, bc = bsr.blocks.shape
-        rows = bsr.host("block_rows").astype(np.int64)
-        cols = bsr.host("block_cols").astype(np.int64)
-        n_rb = -(-bsr.shape[0] // br)
-        if rows.shape != (t,) or cols.shape != (t,):
-            raise ValueError("bsr_spmm: block_rows / block_cols do not match the blocks")
-        if t and (np.any(np.diff(rows) < 0) or rows[0] < 0 or rows[-1] >= n_rb
-                  or cols.min() < 0):
-            raise ValueError("bsr_spmm: the kernel needs block_rows ascending within "
-                             "the matrix and block_cols >= 0")
-        self.tile_ptr = torch.from_numpy(np.searchsorted(
-            rows, np.arange(n_rb + 1)).astype(np.int32)).to(bsr.blocks.device)
-        self.block_cols = bsr.block_cols.to(torch.int32).contiguous()
-        self.n_rb = n_rb
-
-
-def _plan(bsr: BSR) -> _Plan:
-    """The matrix's launch plan, cached on it (a frozen matrix's layout and
-    values never change)."""
-    plan = bsr.__dict__.get("_bsr_plan")
+def spmm_plan(bsr: BSR) -> _rowgroup.Plan:
+    """The matrix's row-group plan, built on its device at first use and
+    cached on it (a frozen matrix's layout and values never change)."""
+    plan = bsr.__dict__.get("_spmm_plan")
     if plan is None:
-        plan = _Plan(bsr)
-        object.__setattr__(bsr, "_bsr_plan", plan)
+        plan = _rowgroup.build(*bsr_entries(bsr), bsr.shape)
+        object.__setattr__(bsr, "_spmm_plan", plan)
     return plan
 
 
 def bsr_spmm(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B.  CUDA: one launch of ``bsr_spmm_kernel``; CPU: the plain
-    version."""
+    """Y = A @ B.  CUDA: one launch of ``rowgroup_spmm_kernel`` over the
+    plan; CPU: the plain version."""
     n_rows, n_cols = bsr.shape
     if B.dim() != 2 or B.shape[0] != n_cols:
         raise ValueError(f"bsr_spmm: B of shape {tuple(B.shape)} for a {bsr.shape} matrix")
-    m = B.shape[1]
     if bsr.blocks.device.type == "cpu" and B.device.type == "cpu":
         return bsr_spmm_ref(bsr, B)
     if B.device != bsr.blocks.device:
@@ -156,24 +124,15 @@ def bsr_spmm(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
                          f"the kernel needs both on one CUDA device")
     if B.dtype not in FLOAT_DTYPES:
         raise TypeError(f"bsr_spmm: the CUDA kernel takes a float B, got {B.dtype}")
-    plan = _plan(bsr)
-    adt = _adt(bsr, B)
-    if m == 0 or bsr.n_tiles == 0:
-        return torch.zeros((n_rows, m), dtype=adt, device=B.device)
-    blocks = bsr.blocks.to(adt).contiguous()
-    Bc = B.to(adt).contiguous()
-    Y = torch.empty((n_rows, m), dtype=adt, device=B.device)
-    lib = _kernels()
-    with torch.cuda.device(B.device):
-        rc = getattr(lib, f"smt_bsr_spmm_{_SUFFIX[adt]}")(
-            blocks.data_ptr(), plan.block_cols.data_ptr(), plan.tile_ptr.data_ptr(),
-            plan.n_rb, bsr.br, bsr.bc, n_rows, n_cols, m,
-            Bc.data_ptr(), Y.data_ptr(), torch.cuda.current_stream(B.device).cuda_stream)
-    if rc != 0:
-        msg = lib.smt_bsr_error_string(rc).decode()
-        raise RuntimeError(f"bsr_spmm: CUDA error {rc} ({msg})")
-    LAUNCHES["bsr_spmm"] += 1
-    return Y
+    if bsr.blocks.device.type != "cuda" or any(
+            t is not None and t.device != bsr.blocks.device
+            for t in (bsr.block_rows, bsr.block_cols, bsr.occ)):
+        raise ValueError(f"bsr_spmm: the kernel needs blocks, block_rows, block_cols and occ "
+                         f"on one CUDA device, got {bsr.blocks.device}")
+    if bsr.blocks.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"bsr_spmm: the CUDA kernel takes float blocks, got "
+                        f"{bsr.blocks.dtype}")
+    return _rowgroup.launch(spmm_plan(bsr), B, LAUNCHES, "bsr_spmm")
 
 
 def spmm_pallas(mat, B: torch.Tensor) -> torch.Tensor:

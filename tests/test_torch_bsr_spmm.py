@@ -2,7 +2,9 @@
 the host and device freezes give the same arrays bit for bit (empty block
 rows and nnz = 0 included); ``bsr_spmm_ref`` matches the Pallas kernel in
 interpret mode and the XLA oracle; round trips keep stored zeros; and (on a
-CUDA card) the CUDA kernel matches the plain version.
+CUDA card) the row-group kernel matches the plain version at every width,
+on a long power-law row and on an unaligned B, reruns bitwise, and gives a
+CSR SpMM's answer where B holds inf or NaN.
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (another summation
 order), 1e-12 in f64.  f32 operands are passed explicitly, because
@@ -263,10 +265,11 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("name,block,m_rhs", [
-    ("blocky_64x256", (8, 128), 64), ("blocky_100x300", (8, 128), 129),
-    ("empty_block_rows", (16, 256), 17), ("empty_block_rows", (512, 128), 130),
-    ("scattered_72x150", (64, 128), 1), ("empty", (8, 128), 8)])
+@pytest.mark.parametrize("m_rhs", [1, 5, 17, 128, 129])
+@pytest.mark.parametrize("name,block", [
+    ("blocky_64x256", (8, 128)), ("blocky_100x300", (8, 128)),
+    ("empty_block_rows", (16, 256)), ("empty_block_rows", (512, 128)),
+    ("scattered_72x150", (64, 128)), ("stored_zero", (8, 128)), ("empty", (8, 128))])
 def test_cuda_kernel_matches_plain(cuda, dtype, name, block, m_rhs):
     m = MATRICES[name]()
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda), br=block[0],
@@ -281,6 +284,60 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, block, m_rhs):
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0], m_rhs)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(ksp.bsr_spmm(tb, B), y)          # reruns bitwise
+
+
+def power_law_row(n=3000, seed=7):
+    """A few entries per row, and row 1234 holding a quarter of all columns."""
+    m = scattered(n, n, 0.002, seed).tolil()
+    rng = np.random.default_rng(seed)
+    m[1234, rng.choice(n, n // 4, replace=False)] = rng.standard_normal(n // 4)
+    return m.tocsr().astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_walks_a_long_power_law_row(cuda, dtype):
+    m = power_law_row()
+    tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda)).astype(dtype)
+    B = torch.randn(m.shape[1], 40, device=cuda, dtype=dtype)
+    y = ksp.bsr_spmm(tb, B)
+    assert rel_err(y.cpu(), ksp.bsr_spmm_ref(tb, B).cpu()) < TOL[dtype]
+    assert rel_err(y.cpu(), m.astype(np.float64) @ B.double().cpu().numpy()) < TOL[dtype]
+    assert torch.equal(ksp.bsr_spmm(tb, B), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_takes_an_unaligned_b(cuda, dtype):
+    """B whose rows do not start on 16 bytes: the scalar path."""
+    m = MATRICES["blocky_100x300"]()
+    tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda)).astype(dtype)
+    B = torch.randn(300 * 128 + 1, device=cuda, dtype=dtype)[1:].view(300, 128)
+    assert B.is_contiguous() and B.data_ptr() % 16
+    assert rel_err(ksp.bsr_spmm(tb, B).cpu(), ksp.bsr_spmm_ref(tb, B).cpu()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_gives_a_csr_spmm_answer_on_non_finite_b(cuda):
+    """Where B holds inf or NaN, an unstored zero of a stored block adds
+    nothing (scipy's and torch.sparse.mm's answer), a stored zero gives
+    0 · inf = NaN; the plain version's dense blocks give NaN for both."""
+    m = with_stored_zero().tocoo()
+    free = 150                                          # no entry reads it; block column 1 does
+    keep = m.col != free
+    m = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    z = int(np.flatnonzero(m.data == 0)[0])             # a stored zero
+    r0, c0 = int(np.searchsorted(m.indptr, z, side="right") - 1), int(m.indices[z])
+    B = np.ones((200, 3), np.float32)
+    B[c0, 0] = np.inf
+    B[free, 1] = np.nan
+    want = m @ B
+    assert np.isnan(want[r0, 0]) and not np.isnan(want[:, 1]).any()
+    tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda))
+    Bt = torch.from_numpy(B).to(cuda)
+    got = ksp.bsr_spmm(tb, Bt).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert torch.isnan(ksp.bsr_spmm_ref(tb, Bt)[:, 1]).any()
 
 
 @pytest.mark.cuda

@@ -107,6 +107,6 @@ def test_densevec_and_norms():
     with pytest.raises(ValueError):
         tsm.DenseVec([1.0]).add(tsm.DenseVec([1.0, 2.0]))
     t = v.to_torch()
-    assert float(tsm.inner_prod(t, t)) == pytest.approx(5.25)
+    assert float(tsm.vectors.inner_prod(t, t)) == pytest.approx(5.25)
     assert float(tsm.norm(t)) == pytest.approx(5.25 ** 0.5)
     assert float(tsm.norm_squared(torch.ones(4, dtype=torch.bfloat16))) == 4.0

@@ -3,7 +3,8 @@ inputs: the freezes give the same arrays and static fields bit for bit (the
 overflow pack and nnz = 0 included); the four plain versions match the
 Pallas kernels in interpret mode and the XLA oracles; ``scale``/``astype``
 keep the layout; round trips keep stored zeros; and (on a CUDA card) the
-CUDA kernels match the plain versions.
+CUDA kernels match the plain versions (the SpMM, the row-group kernel,
+also on a long power-law row and where B holds inf or NaN).
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (another summation
 order), 1e-12 in f64.  f32 operands are passed explicitly, because
@@ -422,7 +423,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     assert y.dtype == y_ref.dtype and y.shape == (mat.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(spmv(mat, x), y)                   # reruns bitwise
-    for m_rhs in (1, 5, 8, 20, 129):
+    for m_rhs in (1, 5, 17, 128, 129):
         B = torch.randn(mat.shape[1], m_rhs, device=cuda)
         B = B.to(dtype) if dtype != torch.bfloat16 else B
         Y = spmm(mat, B)
@@ -431,7 +432,51 @@ def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
         assert Y.dtype == Y_ref.dtype and Y.shape == (mat.shape[0], m_rhs)
         assert rel_err(Y.cpu(), Y_ref.cpu()) < TOL[dtype], m_rhs
         assert torch.equal(spmm(mat, B), Y)
-    assert ksl.LAUNCHES["slab_spmm"] == 10 * n_levels
+    assert ksl.LAUNCHES["slab_spmm"] == 10                # one launch a product, any level count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slab", "slab_pack"])
+def test_cuda_spmm_walks_a_long_power_law_row(cuda, kind):
+    rng = np.random.default_rng(7)
+    m = mixed_degree(3000, 7).tolil()
+    m[1234, rng.choice(3000, 900, replace=False)] = rng.standard_normal(900)
+    m = m.tocsr().astype(np.float32)
+    csr = tsm.CSR.from_scipy(m, device=cuda)
+    mat = csr.to_slab() if kind == "slab" else csr.to_slab_pack()
+    spmm, spmm_ref = ((ksl.slab_spmm, ksl.slab_spmm_ref) if kind == "slab"
+                      else (ksl.slab_pack_spmm, ksl.slab_pack_spmm_ref))
+    B = torch.randn(3000, 33, device=cuda)
+    Y = spmm(mat, B)
+    assert rel_err(Y.cpu(), spmm_ref(mat, B).cpu()) < 1e-5
+    assert rel_err(Y.cpu(), m.astype(np.float64) @ B.double().cpu().numpy()) < 1e-5
+    assert torch.equal(spmm(mat, B), Y)
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_gives_a_csr_spmm_answer_on_non_finite_b(cuda):
+    """A padding slot reads no B (a CSR SpMM's answer where B holds inf
+    there), a stored zero gives 0 · inf = NaN."""
+    m = with_stored_zero().tocoo()
+    free = 128                                         # no entry reads it
+    keep = m.col != free
+    m = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    z = int(np.flatnonzero(m.data == 0)[0])            # a stored zero
+    r0 = int(np.searchsorted(m.indptr, z, side="right") - 1)
+    B = np.ones((300, 2), np.float32)
+    B[int(m.indices[z]), 0] = np.inf
+    B[free, 1] = np.nan
+    pk = tsm.CSR.from_scipy(m, device=cuda).to_slab_pack()
+    sl = tsm.CSR.from_scipy(m, device=cuda).to_slab(rb=128)
+    pad_cols = ksl._slab_cols(sl)[~sl._stored_mask()]
+    assert bool((pad_cols == free).any())              # padding slots point at it
+    want = m @ B
+    assert np.isnan(want[r0, 0]) and not np.isnan(want[:, 1]).any()
+    Bt = torch.from_numpy(B).to(cuda)
+    for mat, spmm in ((sl, ksl.slab_spmm), (pk, ksl.slab_pack_spmm)):
+        np.testing.assert_allclose(spmm(mat, Bt).cpu().numpy(), want, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+    assert torch.isnan(ksl.slab_spmm_ref(sl, Bt)[:, 1]).any()
 
 
 @pytest.mark.cuda
