@@ -17,10 +17,12 @@ benchmark's config 4a).  The SpMM path: the pwtk-class operator
 ``matgen.fem_block_band() * 2e-2`` at its full 217,920 rows (the reference
 benchmark's fem SpMV/SpMM configs) → CSR → BSR.from_csr_device (512×128
 blocks) → spmm at m = 128 through the row-group kernel over the BSR's
-compact plan, and → SlabPack / SlabELL → spmv through the slab kernel and
-spmm through the row-group kernel over their plans.  The general-matrix path: the
-circuit operator through io.load_mtx and checkpoint.load_matrix with no
-device named (the current card) → WELL → spmv through the WELL kernel →
+compact plan, and → SlabPack / SlabELL → spmv through the row-group SpMV
+kernel and spmm through the row-group SpMM kernel over their plan (one plan
+per matrix, the same for both).  The general-matrix path: the circuit
+operator through io.load_mtx and checkpoint.load_matrix with no device
+named (the current card) → WELL → spmv through the row-group SpMV kernel
+over its plan →
 BiCGStab, GMRES(30) and rmatvec; the FEM operator → SlabStream → spmv
 through the SlabStream kernel → PCG(Jacobi); auto_format on the Poisson,
 FEM and circuit operators.
@@ -79,8 +81,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 package's test shapes (64×256 m = 64, 100×300 m = 129),
                 empty block rows, blocks 8/16/512 × 128/256, a stored zero,
                 m = 0, nnz = 0; from_csr_device against the host freeze
- 18 slab        the slab SpMV kernel and the row-group SpMM kernel against
-                their plain versions, f32, f64 and bf16 values, m = 1, 5,
+ 18 slab        the row-group SpMV and SpMM kernels through the slab wrappers
+                against their plain versions, f32, f64 and bf16 values, m = 1, 5,
                 17, 128, 129: SlabELL at rb 128 and 256, SlabPack with and
                 without spill (an overflow pack), a rectangular matrix, an
                 empty one, a stored zero; where B holds inf or NaN, the
@@ -88,25 +90,31 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  19 fem spmm    the SpMM path at full size: BSR.from_csr_device(512×128) →
                 its row-group plan (build seconds, MB, group size, padding)
                 → spmm (Y[:256, :8] against scipy, as the reference
-                benchmark checks), to_slab_pack and to_slab → their plans →
-                spmv and spmm, each kernel against its plain version and
-                the plan's walk, against the strip kernel, the CSR stream
-                path and the CSR spmm branch; a SlabPack checkpoint
+                benchmark checks), to_slab_pack and to_slab → their plans
+                (one plan each for spmv and spmm; lanes and segments of the
+                SpMV) → spmv and spmm, each kernel against its plain version
+                and the plan's walk, against the strip kernel, the CSR
+                stream path and the CSR spmm branch; a SlabPack checkpoint
                 reloaded to the card; the bsr_spmm, slab_spmv and slab_spmm
                 launch counters must be > 0; BSR spmm, SlabPack spmv and
-                spmm rerun bitwise
+                spmm rerun bitwise, and SlabPack and SlabELL spmv are
+                bitwise equal
  20 times       each kernel of the path against its plain version (CUDA
                 events per call, wrapper included) and its device time
                 (profiler): the SpMM through the BSR, SlabPack and SlabELL
                 wrappers in Tflop/s of 2·nnz·m and GB/s of the plan, B and
                 Y, and through the SlabPack at m = 1, 17, 129 and in f64
-                beside torch.sparse.mm, SlabPack and SlabELL SpMV in GB/s of spmv_traffic_bytes
-                beside the strip SpMV; the host seconds of the freezes and
-                plans
- 21 well        the WELL kernel against its plain version, f32, f64 and bf16
-                values: tests/test_well.py's matrices (random 300², wide
-                64×1000, tall 1000×64, empty rows, a dense row), k_tile = 4
-                overflow tiles, a stored zero, nnz = 0
+                beside torch.sparse.mm, SlabPack and SlabELL SpMV in GB/s of
+                the plan, x and y and of spmv_traffic_bytes beside the strip
+                SpMV; the host seconds of the freezes and plans
+ 21 well        the row-group SpMV through the WELL wrapper against its plain
+                version, f32, f64 and bf16 values: tests/test_well.py's
+                matrices (random 300², wide 64×1000, tall 1000×64, empty
+                rows, a dense row), k_tile = 4 overflow tiles, a stored
+                zero, nnz = 0, a heavy row cut into many segments (against
+                the plan's walk, reruns bitwise), empty groups; where x
+                holds inf or NaN, the SpMV of a WELL, a SlabELL and a
+                SlabPack against scipy's CSR SpMV
  22 slab stream the SlabStream kernel against its plain version, f32, f64 and
                 bf16 values: mixed-degree 2000 at rb 256 and 1100 at rb 128,
                 rectangular 300×900 and 900×300, an empty matrix, a stored
@@ -114,9 +122,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  23 general     the general-matrix path at full size: the circuit operator
                 via save_mtx / load_mtx and a WELL checkpoint, both loaded
                 with no device named (they must land on the card), → WELL →
-                spmv against the CSR stream path, method='pallas' and the
-                reloaded WELL bitwise equal, BiCGStab and GMRES(30) through
-                the WELL kernel, rmatvec against scipy's Aᵀy; the FEM SPD
+                its plan (build seconds, MB, group size, lanes, segments) →
+                spmv against the CSR stream path and the plan's walk,
+                method='pallas' and the reloaded WELL bitwise equal,
+                BiCGStab and GMRES(30) through the row-group SpMV, rmatvec against scipy's Aᵀy; the FEM SPD
                 operator of phase 10 → SlabStream → spmv against the strip
                 kernel and the CSR stream path, PCG(Jacobi), a SlabStream
                 checkpoint reloaded; auto_format picks DIA, StripELL and
@@ -127,8 +136,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 bitwise
  24 times       each new kernel against its plain version (CUDA events per
                 call, wrapper included) and its device time (profiler), GB/s
-                of spmv_traffic_bytes, BiCGStab iterations/s through the WELL
-                kernel and PCG(Jacobi) iterations/s through the SlabStream
+                of the plan, x and y and of spmv_traffic_bytes, BiCGStab
+                iterations/s through the row-group SpMV over WELL and PCG(Jacobi) iterations/s through the SlabStream
                 kernel (against the plain versions), the host seconds of
                 to_well and to_slab_stream
 Every kernel's timing phase also times one PyTorch library call that
@@ -139,7 +148,9 @@ bound: the larger of the bytes the function needs over 3.35 TB/s and its
 f32 operations over 67 Tflop/s (the H100 SXM's published rates), where a
 sparse product needs its entries in CSR (value and column index, row
 pointers), x or B once and y or Y once, and a DIA band its diagonals, x and
-y; and measures the kernel's launches per step of its path (per solver
+y (an SpMV over a row-group plan smaller than the CSR is bound by the
+plan's bytes, x and y instead: the FEM plan shares each column among 3
+rows); and measures the kernel's launches per step of its path (per solver
 iteration, or per product), from the launch counts over k and 2k steps.
 Then a JSON line of the kernels and, last, the device JSON line.
 
@@ -196,11 +207,11 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
                             "sparsemat_tpu/kernels/route.py:198"),
            "bsr_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                         "sparsemat_tpu/kernels/spmm.py:72"),
-           "slab_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
+           "slab_spmv": ("sparsemat_tpu_torch/csrc/spmv.cu",
                          "sparsemat_tpu/kernels/spmv.py:165, sparsemat_tpu/kernels/spmv.py:271"),
            "slab_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                          "sparsemat_tpu/kernels/spmm.py:204, sparsemat_tpu/kernels/spmm.py:301"),
-           "well_spmv": ("sparsemat_tpu_torch/csrc/well.cu",
+           "well_spmv": ("sparsemat_tpu_torch/csrc/spmv.cu",
                          "sparsemat_tpu/kernels/spmv.py:50"),
            "slab_stream_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
                                 "sparsemat_tpu/kernels/spmv.py:320")}
@@ -420,7 +431,7 @@ def build_all():
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
             "csrc/route.cu": kr._kernels, "csrc/spmm.cu": krg._kernels,
-            "csrc/slab.cu": ksl._kernels, "csrc/well.cu": kw._kernels,
+            "csrc/spmv.cu": krg._spmv_kernels, "csrc/slab.cu": ksl._kernels,
             "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
@@ -511,21 +522,28 @@ def device_us(fn, iters, key, launched):
     recorded launch times the launches per call, which ``launched`` (the
     wrappers' launch count) gives.  The profiler can drop the records of
     long kernels late in a process (two of five 10 ms launches recorded
-    in one run), so a shortfall is printed and not taken as zero time."""
+    in one run, none of twenty short ones in another), so a shortfall is
+    printed and not taken as zero time, and a trace that recorded nothing
+    is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    before = launched()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    made = launched() - before
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
-    us = sum(e.self_device_time_total for e in rows)
-    recorded = sum(e.count for e in rows)
+    for attempt in range(3):
+        before = launched()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        made = launched() - before
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        recorded = sum(e.count for e in rows)
+        if us > 0 and recorded > 0:
+            break
+        say("profile", f"{key}: the profiler recorded none of {made} launches (trace "
+            f"{attempt + 1} of 3)")
     check(us > 0 and recorded > 0, f"the profiler recorded no device time for {key}")
     if recorded != made:
         say("profile", f"{key}: the profiler recorded {recorded} of {made} launches; "
@@ -1105,10 +1123,24 @@ def check_non_finite_b(dev):
 
 
 def plan_line(label, plan, seconds):
-    """The row-group plan of one matrix, for the phase lines."""
+    """The row-group plan of one matrix and its SpMV split, for the phase
+    lines."""
+    split = plan.spmv
     return (f"{label} plan: built in {seconds:.3f} s, {plan.nbytes / 1e6:.1f} MB, groups of "
             f"{plan.group}, {plan.n_union} union columns for {plan.nnz} entries, padding "
-            f"{plan.padding:.4f}")
+            f"{plan.padding:.4f}; SpMV: {split.lanes} lanes, {split.n_seg} segments of at most "
+            f"{split.seg_cols} union columns, {split.n_multi} groups of several segments")
+
+
+def spmv_need(plan, csr):
+    """(bytes, "plan" or "CSR"): what an SpMV over the row-group plan needs,
+    the smaller of the CSR's count (``need_bytes``) and the plan's bytes,
+    x and y once each (a plan that shares each column among G rows holds
+    fewer bytes than the CSR)."""
+    n_rows, n_cols = csr.shape
+    of_csr = need_bytes(csr.n_non_zero_entries(), csr.shape)
+    of_plan = plan.nbytes + (n_rows + n_cols) * 4
+    return (of_plan, "plan") if of_plan < of_csr else (of_csr, "CSR")
 
 
 def spmm_phases(dev, g, times, launches):
@@ -1193,30 +1225,35 @@ def spmm_phases(dev, g, times, launches):
     host["from_csr_device"] = time.perf_counter() - t0
     plans = {}
 
-    def timed_plan(label, mat, planner):
-        """Build the matrix's row-group plan (which its first spmm would
-        build) and time it."""
+    def timed_plan(label, mat):
+        """Build the matrix's row-group plan and its SpMV split (which its
+        first product would build) and time them."""
         t0 = time.perf_counter()
-        plans[label] = planner(mat)
+        plans[label] = krg.plan_of(mat)
+        plans[label].spmv
         torch.cuda.synchronize()
         host[f"{label} plan"] = time.perf_counter() - t0
 
-    timed_plan("BSR", bsr, ksp.spmm_plan)
+    timed_plan("BSR", bsr)
     Y_bsr = tsm.spmm(bsr, B)
     t0 = time.perf_counter()
     pk = csr.to_slab_pack()
     torch.cuda.synchronize()
     host["to_slab_pack"] = time.perf_counter() - t0
-    timed_plan("SlabPack", pk, ksl.spmm_plan)
+    timed_plan("SlabPack", pk)
     y_pk = tsm.spmv(pk, x)
     Y_pk = tsm.spmm(pk, B)
     t0 = time.perf_counter()
     sl = csr.to_slab()
     torch.cuda.synchronize()
     host["to_slab"] = time.perf_counter() - t0
-    timed_plan("SlabELL", sl, ksl.spmm_plan)
+    timed_plan("SlabELL", sl)
     y_sl = tsm.spmv(sl, x)
     Y_sl = tsm.spmm(sl, B)
+    for label, mat in (("SlabPack", pk), ("SlabELL", sl)):
+        check(krg.plan_of(mat) is plans[label]
+              and [k for k in mat.__dict__ if k.endswith("plan")] == ["_rowgroup_plan"],
+              f"the {label}'s spmv and spmm did not share its one plan")
     with tempfile.TemporaryDirectory() as td:
         npz = os.path.join(td, "fem_slab_pack.npz")
         t0 = time.perf_counter()
@@ -1250,6 +1287,9 @@ def spmm_phases(dev, g, times, launches):
             "pack spmv kernel vs plain": compare("slab_spmv", y_pk,
                                                  ksl.slab_pack_spmv_ref(pk, x), 1e-5,
                                                  "fem pack spmv kernel vs plain"),
+            "pack spmv kernel vs plan walk": compare(None, y_pk,
+                                                     krg.spmv_walk(plans["SlabPack"], x), 1e-5,
+                                                     "fem pack spmv kernel vs its plan's walk"),
             "pack spmv vs strip": compare(None, y_pk, y_strip, 1e-5, "fem pack vs strip spmv"),
             "pack spmv vs CSR": compare(None, y_pk, y_csr, 1e-5, "fem pack vs CSR spmv"),
             "pack spmm kernel vs plain": compare("slab_spmm", Y_pk,
@@ -1265,6 +1305,7 @@ def spmm_phases(dev, g, times, launches):
             "slab spmm vs BSR": compare(None, Y_sl, Y_bsr, 1e-5, "fem slab vs BSR spmm")}
     check(torch.equal(tsm.spmm(bsr, B), Y_bsr), "BSR spmm rerun differs")
     check(torch.equal(tsm.spmv(pk, x), y_pk), "SlabPack spmv rerun differs")
+    check(torch.equal(y_sl, y_pk), "SlabELL and SlabPack spmv differ (one plan, one order)")
     check(torch.equal(tsm.spmm(pk, B), Y_pk), "SlabPack spmm rerun differs")
     check(torch.equal(tsm.spmm(sl, B), Y_sl), "SlabELL spmm rerun differs")
     for label, plan in plans.items():
@@ -1279,7 +1320,8 @@ def spmm_phases(dev, g, times, launches):
         f"spmv_traffic_bytes {pk.spmv_traffic_bytes()}; SlabELL: c_total {sl.c_total}, "
         f"{sl.slab_windows} windows, nse {sl.nse}; checkpoint {npz_mb:.1f} MB; Y[:256, :8] "
         f"vs scipy {spot:.2e}; rel errs: " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f"; reruns bitwise equal; launches {({k: launches[k] for k in ('bsr_spmm', 'slab_spmv', 'slab_spmm')})}")
+        + "; reruns bitwise equal; SlabPack and SlabELL spmv bitwise equal; launches "
+        + f"{({k: launches[k] for k in ('bsr_spmm', 'slab_spmv', 'slab_spmm')})}")
     for label, plan in plans.items():
         say("19 fem spmm", plan_line(label, plan, host[f"{label} plan"]))
 
@@ -1327,40 +1369,47 @@ def spmm_phases(dev, g, times, launches):
         widths.append(f"m={m_w} {str(dt)[6:]} kernel {k_w:.4f} torch.sparse.mm {lib_w:.4f}")
     say("20 times", "SlabPack spmm at other widths, ms per call: " + "; ".join(widths))
 
-    mb = pk.spmv_traffic_bytes() / 1e6
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_pack_spmv(pk, x),
-                                           lambda: ksl.slab_pack_spmv_ref(pk, x), 20)
+    need_v, of = spmv_need(plans["SlabPack"], csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
-    b_ms, _ = record(times, "slab_spmv", k_ms, p_ms, need_bytes(nnz, csr.shape), 2 * nnz, lib)
-    per_v = note_steps(times, "slab_spmv", per_step(
-        lambda: ksl.LAUNCHES, lambda j: [tsm.spmv(pk, x) for _ in range(j)], 1)["slab_spmv"],
-        "spmv(SlabPack, x) product")
-    d_ms = device_us(lambda: ksl.slab_pack_spmv(pk, x), 20, "slab_spmv_kernel",
-                     lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
     st = csr.to_strip()
     s_ms = cuda_ms(lambda: ks.strip_spmv(st, x), 20)
-    say("20 times", f"SlabPack spmv fem f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
-        f"GB/s of {mb:.1f} MB spmv_traffic_bytes) runs {k_runs}, of it {d_ms:.4f} ms on the "
-        f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; "
-        f"StripELL kernel on the same operator {s_ms:.4f} ms; bound {b_ms:.4f} ms; torch.mv "
-        f"on the CSR {lib} ms; launches per product {per_v}")
-    mb = sl.spmv_traffic_bytes() / 1e6
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ksl.slab_spmv(sl, x),
-                                           lambda: ksl.slab_spmv_ref(sl, x), 20)
-    d_ms = device_us(lambda: ksl.slab_spmv(sl, x), 20, "slab_spmv_kernel",
-                     lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
-    bv_ms, _ = bound_ms(need_bytes(nnz, csr.shape), 2 * nnz)
-    say("20 times", f"SlabELL spmv fem f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
-        f"GB/s of {mb:.1f} MB spmv_traffic_bytes) runs {k_runs}, of it {d_ms:.4f} ms on the "
-        f"device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; bound "
-        f"{bv_ms:.4f} ms; torch.mv on the CSR {lib} ms")
+    for label, mat, kernel_fn, plain_fn in (
+            ("SlabPack", pk, ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref),
+            ("SlabELL", sl, ksl.slab_spmv, ksl.slab_spmv_ref)):
+        row = times if label == "SlabPack" else {}       # one JSON row: one kernel, one plan
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kernel_fn(mat, x),
+                                               lambda: plain_fn(mat, x), 20)
+        b_ms, _ = record(row, "slab_spmv", k_ms, p_ms, need_v, 2 * nnz, lib)
+        row["slab_spmv"]["bound_counts"] = of
+        per_v = note_steps(row, "slab_spmv", per_step(
+            lambda: ksl.LAUNCHES, lambda j: [tsm.spmv(mat, x) for _ in range(j)], 1)[
+                "slab_spmv"], f"spmv({label}, x) product")
+        d_ms = device_us(lambda: kernel_fn(mat, x), 20, "rowgroup_spmv_kernel",
+                         lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
+        mb, mp = mat.spmv_traffic_bytes() / 1e6, need_v / 1e6
+        say("20 times", f"{label} spmv fem f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
+            f"of it {d_ms:.4f} ms on the device (profiler): {mp / d_ms:.1f} GB/s of the plan, "
+            f"x and y ({mp:.1f} MB), {mb / d_ms:.1f} GB/s of the layout's {mb:.1f} MB "
+            f"spmv_traffic_bytes; plain {p_ms:.4f} ms runs {p_runs}; StripELL kernel on the "
+            f"same operator {s_ms:.4f} ms; bound {b_ms:.4f} ms (bytes of the {of}: "
+            f"{need_v} against the CSR's {need_bytes(nnz, csr.shape)}); torch.mv on the CSR "
+            f"{lib} ms; launches per product {per_v}")
     say("20 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
 
+def heavy_row(n=3000):
+    """Scattered entries and one row holding every column: the row-group
+    SpMV cuts that row into many segments."""
+    rng = np.random.default_rng(17)
+    m = sp.random(n, n, density=0.002, random_state=rng, format="lil", dtype=np.float32)
+    m[17, :] = rng.standard_normal(n).astype(np.float32)
+    return m.tocsr()
+
+
 def well_cases():
-    """(label, scipy matrix, k_tile) for the WELL kernel against its plain
+    """(label, scipy matrix, k_tile) for the WELL wrapper against its plain
     version: tests/test_well.py's matrices, k_tile = 4 overflow tiles, a
-    stored zero and nnz = 0."""
+    stored zero, nnz = 0 and a heavy row."""
     rng = np.random.default_rng(0)
     rand = lambda r, c, d: sp.random(r, c, density=d, random_state=rng,  # noqa: E731
                                      format="csr", dtype=np.float32)
@@ -1380,7 +1429,40 @@ def well_cases():
                         64, 128, density=0.2, random_state=np.random.default_rng(3),
                         format="csr", dtype=np.float32), 4),
                     ("stored zero", zero, None),
-                    ("nnz=0", sp.csr_matrix((50, 70), dtype=np.float32), None)]
+                    ("nnz=0", sp.csr_matrix((50, 70), dtype=np.float32), None),
+                    ("heavy row", heavy_row(), None)]
+
+
+def check_non_finite_x(dev):
+    """Where x holds inf or NaN, the row-group SpMV gives scipy's CSR SpMV
+    answer through each of its wrappers: a stored zero meets inf (0 · inf
+    = NaN in both), and a column that only padding slots point at holds
+    NaN (no NaN from it, where the plain versions give one)."""
+    m = sprinkled(300, 520, 0.03, 11, zeros=(0,)).tocoo()
+    keep = m.col != 128                     # under padding slots
+    m = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    z = int(np.flatnonzero(m.data == 0)[0])
+    x = np.ones(520, np.float32)
+    x[int(m.indices[z])] = np.inf
+    x[128] = np.nan
+    want = m @ x
+    check(np.isnan(want).sum() == 1, "the non-finite case: scipy gives one NaN")
+    csr = tsm.CSR.from_scipy(m, device=dev)
+    xt = torch.from_numpy(x).to(dev)
+    out = {}
+    for label, mat, fn, ref in (("well", csr.to_well(), kw.well_spmv, kw.well_spmv_ref),
+                                ("slab", csr.to_slab(rb=128), ksl.slab_spmv, ksl.slab_spmv_ref),
+                                ("pack", csr.to_slab_pack(), ksl.slab_pack_spmv,
+                                 ksl.slab_pack_spmv_ref)):
+        got = fn(mat, xt).cpu().numpy()
+        check(np.array_equal(np.isnan(got), np.isnan(want)),
+              f"non-finite x through {label}: NaN where scipy has none, or the reverse")
+        ok = np.isfinite(want)
+        compare(None, torch.from_numpy(got[ok]), torch.from_numpy(want[ok]), 1e-5,
+                f"non-finite x through {label}, finite entries")
+        out[label] = (f"{int(np.isnan(got).sum())} NaN as scipy, plain version "
+                      f"{int(torch.isnan(ref(mat, xt)).sum())}")
+    return out
 
 
 def stream_cases():
@@ -1419,9 +1501,23 @@ def general_phases(dev, g, times, launches, poisson_csr):
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("well_spmv", y, y_ref, TOL[dt]["y"], f"well {label} {dt}"))
         worst[f"{label} (K {well.k_tile}, {well.n_tiles} tiles)"] = max(errs)
+        plan = krg.plan_of(well)
+        if label == "heavy row":            # the heavy row's group takes the partials path
+            check(plan.spmv.n_multi > 0, "the heavy row was not cut into segments")
+            y = kw.well_spmv(well, xs)
+            compare(None, y, krg.spmv_walk(plan, xs), 1e-5, "heavy row vs its plan's walk")
+            check(all(torch.equal(kw.well_spmv(well, xs), y) for _ in range(5)),
+                  "heavy row: reruns differ")
+            heavy = (f"heavy row: {int(plan.spmv.multi[:, 2].max())} segments of at most "
+                     f"{plan.spmv.seg_cols} union columns, reruns bitwise equal")
+        if label == "empty rows":
+            empty = int((plan.grp_ptr[1:] == plan.grp_ptr[:-1]).sum())
+            check(empty > 0, "the empty-rows case has no empty group")
+    nonfinite = check_non_finite_x(dev)
     torch.cuda.synchronize()
     say("21 well", "kernel vs plain within tolerance (f32, f64, bf16 values); worst rel err "
-        "per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+        "per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items())
+        + f"; {heavy}; empty rows: {empty} empty groups; non-finite x: {nonfinite}")
 
     # 22 -----------------------------------------------------------------------
     worst = {}
@@ -1466,6 +1562,11 @@ def general_phases(dev, g, times, launches, poisson_csr):
         well = csr.to_well()
         torch.cuda.synchronize()
         host["to_well"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wplan = krg.plan_of(well)
+        wplan.spmv
+        torch.cuda.synchronize()
+        host["WELL plan"] = time.perf_counter() - t0
         checkpoint.save_matrix(npz, well)
         well2 = checkpoint.load_matrix(npz)          # no device: the current card
     check(isinstance(well2, tsm.WELL) and well2.vals.device == dev,
@@ -1476,6 +1577,7 @@ def general_phases(dev, g, times, launches, poisson_csr):
     check(torch.equal(tsm.spmv(csr, x, method="pallas"), y),
           "spmv(method='pallas') differs from spmv(WELL)")
     e_csr = compare(None, y, tsm.spmv(csr, x), 1e-5, "circuit spmv WELL kernel vs CSR stream")
+    e_walk = compare(None, y, krg.spmv_walk(wplan, x), 1e-5, "circuit WELL kernel vs its plan's walk")
     b = torch.randn(n, generator=g, device=dev)
     x_bi, info_bi = solvers.bicgstab(well, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
     solved("BiCGStab WELL", x_bi, info_bi, csr, b)
@@ -1535,7 +1637,8 @@ def general_phases(dev, g, times, launches, poisson_csr):
     say("23 general path", f"circuit_scatter·2e-2: {n} rows, {csr.n_non_zero_entries()} "
         f"entries, load_mtx and load_matrix without device= on {csr.data.device}; WELL: "
         f"{well.n_tiles} tiles, K {well.k_tile}, nse {well.nse}, fill {well.fill_ratio():.4f}, "
-        f"spmv_traffic_bytes {well.spmv_traffic_bytes()}; spmv vs CSR {e_csr:.2e}, "
+        f"spmv_traffic_bytes {well.spmv_traffic_bytes()}; spmv vs CSR {e_csr:.2e}, vs the "
+        f"plan's walk {e_walk:.2e}, "
         f"method='pallas' and the reloaded WELL bitwise equal; rmatvec vs scipy {e_rmv:.2e}. "
         f"FEM (phase 10's SPD operator): {nf} rows, {fcsr.n_non_zero_entries()} entries; "
         f"SlabStream: {st.n_chunks} chunks, nse {st.nse}, fill {st.fill_ratio():.4f}, "
@@ -1547,6 +1650,7 @@ def general_phases(dev, g, times, launches, poisson_csr):
         + "; auto_format: " + "; ".join(f"{k} → {v} ({t:.3f} s)" for k, (v, t) in picks.items())
         + f"; launches {({k: launches[k] for k in ('well_spmv', 'slab_stream_spmv')})}")
 
+    say("23 general path", plan_line("WELL", wplan, host["WELL plan"]))
     check(torch.equal(tsm.spmv(well, x), y), "WELL spmv rerun differs")
     check(torch.equal(tsm.spmv(st, xf), yf), "SlabStream spmv rerun differs")
     check(torch.equal(tsm.rmatvec(well, yt), r), "rmatvec rerun differs")
@@ -1564,20 +1668,26 @@ def general_phases(dev, g, times, launches, poisson_csr):
             ("slab_stream_spmv", st, xf, fcsr, ksl.slab_stream_spmv, ksl.slab_stream_spmv_ref,
              fcsr.n_non_zero_entries())):
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(mat, xv), lambda: plain(mat, xv), 20)
-        d_ms = device_us(lambda: kern(mat, xv), 20, f"{name}_kernel",
+        d_ms = device_us(lambda: kern(mat, xv), 20,
+                         {"well_spmv": "rowgroup_spmv_kernel"}.get(name, f"{name}_kernel"),
                          lambda: {**kw.LAUNCHES, **ksl.LAUNCHES}[name]) / 1e3
         A_lib = torch_csr(A_csr)
         lib = library_ms(lambda: torch.mv(A_lib, xv), 20)
         del A_lib
         mb = mat.spmv_traffic_bytes() / 1e6
-        b_ms, by = record(times, name, k_ms, p_ms, need_bytes(nnz_, A_csr.shape), 2 * nnz_,
-                          lib)
+        need, of = (spmv_need(wplan, A_csr) if name == "well_spmv"
+                    else (need_bytes(nnz_, A_csr.shape), "CSR"))
+        b_ms, by = record(times, name, k_ms, p_ms, need, 2 * nnz_, lib)
+        times[name]["bound_counts"] = of
         c_ms = cuda_ms(lambda: tsm.spmv(A_csr, xv), 20)
+        plan_gbs = (f"{wplan.nbytes / 1e6 / d_ms:.1f} GB/s of the {wplan.nbytes / 1e6:.1f} MB "
+                    f"plan, " if name == "well_spmv" else "")
         say("24 times", f"{name} f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} GB/s of "
             f"{mb:.1f} MB spmv_traffic_bytes; {nnz_ / k_ms / 1e6:.3f} Gnnz/s) runs {k_runs}, of "
-            f"it {d_ms:.4f} ms on the device ({mb / d_ms:.1f} GB/s, profiler); plain {p_ms:.4f} "
-            f"ms runs {p_runs}; bound {b_ms:.4f} ms ({by}); torch.mv on the CSR {lib} ms; the "
-            f"port's CSR stream path {c_ms:.4f} ms")
+            f"it {d_ms:.4f} ms on the device ({plan_gbs}{mb / d_ms:.1f} GB/s of the layout, "
+            f"profiler); plain {p_ms:.4f} ms runs {p_runs}; bound {b_ms:.4f} ms ({by}, of the "
+            f"{of}'s {need} bytes; the CSR's {need_bytes(nnz_, A_csr.shape)}); torch.mv on the "
+            f"CSR {lib} ms; the port's CSR stream path {c_ms:.4f} ms")
     plain_w = lambda v: kw.well_spmv_ref(well, v)  # noqa: E731
     runs = [bicgstab_iters_per_s(plain_w, b, 32), bicgstab_iters_per_s(well, b, 128),
             bicgstab_iters_per_s(well, b, 128), bicgstab_iters_per_s(plain_w, b, 32)]

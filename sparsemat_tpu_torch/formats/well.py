@@ -15,9 +15,9 @@ The layout is the JAX package's, array for array and bit for bit (the freeze
 below is the same host numpy program, uploaded once at the end, its host
 arrays cached).  The JAX format also carries ``chunks``, the tile ranges
 that bound each TPU call's scalar-prefetch arrays to SMEM: TPU scaffolding
-that the port's CUDA kernel (``csrc/well.cu``) does not need.  The
-checkpoint writes it (``chunk_bounds``) so that the JAX package reads the
-port's files.
+that the port's CUDA kernel (the row-group SpMV, ``csrc/spmv.cu``) does
+not need.  The checkpoint writes it (``chunk_bounds``) so that the JAX
+package reads the port's files.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
 """Helpers shared by the kernel wrappers: the fill-mode gather of the plain
-versions, and the per-block item ranges the WELL and SlabStream kernels
-walk."""
+versions, and the per-block item ranges the SlabStream kernel walks."""
 
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ def block_ranges(blocks: np.ndarray, n_blocks: int):
     """(ptr, order) for a kernel that walks, per output block b, the items
     ``order[ptr[b]:ptr[b + 1]]`` (or ``ptr[b]:ptr[b + 1]`` of the storage
     order where ``order`` is None): ``blocks`` is each item's block (a
-    WELL's tile_rows, a SlabStream's blk_id).  Items already in block order
+    SlabStream's blk_id).  Items already in block order
     keep it; otherwise a stable sort orders them once.  Items aimed at a
     block >= n_blocks fall past ptr[n_blocks] and are dropped."""
     blocks = np.asarray(blocks, np.int64)

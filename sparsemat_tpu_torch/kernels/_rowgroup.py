@@ -1,7 +1,8 @@
-"""The row-group SpMM shared by the BSR and slab wrappers: a compact launch
-plan built once per matrix, the CUDA kernel's binding (``csrc/spmm.cu``,
-see the note there for what it replaces and what bounds it), and a plain
-walk of the plan in the kernel's order.
+"""The row-group plan shared by the SpMV and SpMM of BSR, WELL, SlabELL
+and SlabPack: a compact launch plan built once per matrix (``plan_of``),
+the bindings of the two CUDA kernels that walk it (``csrc/spmm.cu`` and
+``csrc/spmv.cu``, see the notes there for what they replace and what
+bounds them), and plain walks of the plan in each kernel's order.
 
 The plan holds exactly the entries the format's own ``to_coo`` counts
 (stored zeros stay, zero blocks and padding slots go), whose row and
@@ -17,6 +18,11 @@ count; on a scattered matrix groups of 1 win, which are plain compact
 rows.  A row with two entries at one column (which no freeze makes) gets
 a union column for each, so every entry is its own term.
 
+The SpMV splits the plan's union columns over sub-warps of L lanes
+(``SpmvSplit``, built once per plan): L from the mean union columns per
+group, and a group longer than a segment (2·UNROLL·L union columns) cut
+into segments whose partial sums the last one to finish adds in order.
+
 The plan lives beside the format (the frozen layouts stay bit-equal to
 the JAX freezes); its code is plain torch on any device, so the CPU tests
 build and walk it.
@@ -29,30 +35,51 @@ import ctypes
 import torch
 
 from .._build import load_cuda
+from ..formats.bsr import BSR
 from ..types import accum_dtype
 
-#: the largest row group (the kernel's mask is 8 bits)
+#: the largest row group (the kernels' mask is 8 bits)
 MAX_GROUP = 8
 #: bytes of B a warp gathers per union column at a full column tile
 _TILE_BYTES = 512
+#: block slots whose stored-entry mask one step of a BSR's entry scan holds
+_ENTRY_CHUNK = 1 << 28
+#: union columns one SpMV lane loads per pass (its gathers of x in flight)
+UNROLL = 4
+#: the SpMV's sub-warp widths
+LANES = (4, 8, 16, 32)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_lib = None
+_libs = {}
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def _bind(name: str, fn_prefix: str, argtypes) -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu`` library with its two launchers bound."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = load_cuda(name)
+        for s in _SUFFIX.values():
+            fn = getattr(lib, f"{fn_prefix}_{s}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        err = getattr(lib, f"smt_{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
 
 
 def _kernels() -> ctypes.CDLL:
     """The built and bound ``csrc/spmm.cu`` library."""
-    global _lib
-    if _lib is None:
-        lib = load_cuda("spmm")
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for s in _SUFFIX.values():
-            fn = getattr(lib, f"smt_rowgroup_spmm_{s}")
-            fn.argtypes = [vp, vp, vp, vp, i64, i64, i32, i64, i64, vp, vp, i32, vp]
-            fn.restype = i32
-        lib.smt_spmm_error_string.argtypes = [i32]
-        lib.smt_spmm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _bind("spmm", "smt_rowgroup_spmm",
+                 [_VP, _VP, _VP, _VP, _I64, _I64, _I32, _I64, _I64, _VP, _VP, _I32, _VP])
+
+
+def _spmv_kernels() -> ctypes.CDLL:
+    """The built and bound ``csrc/spmv.cu`` library."""
+    return _bind("spmv", "smt_rowgroup_spmv",
+                 [_VP, _VP, _VP, _I64, _VP, _VP, _VP, _I64, _I32, _I32, _I64, _VP, _VP, _VP,
+                  _VP, _VP])
 
 
 class Plan:
@@ -67,6 +94,7 @@ class Plan:
         self.shape = tuple(shape)
         self.nnz = nnz
         self._cast = {vals.dtype: vals}
+        self._spmv = None
 
     @property
     def n_groups(self) -> int:
@@ -86,11 +114,76 @@ class Plan:
         """Share of the plan's value slots that hold no entry."""
         return 1.0 - self.nnz / max(self.n_union * self.group, 1)
 
+    @property
+    def spmv(self) -> "SpmvSplit":
+        """The SpMV's work split, built at first use and kept."""
+        if self._spmv is None:
+            self._spmv = SpmvSplit(self)
+        return self._spmv
+
     def vals_as(self, dtype: torch.dtype) -> torch.Tensor:
         """The values in ``dtype``, cast once and kept."""
         if dtype not in self._cast:
             self._cast[dtype] = self.vals.to(dtype)
         return self._cast[dtype]
+
+
+class SpmvSplit:
+    """The row-group SpMV's work over a plan: ``lanes`` (L) per sub-warp,
+    the smallest of ``LANES`` whose one pass (L·UNROLL union columns)
+    covers a group of the mean length; segments of at most ``seg_cols``
+    union columns, each a run of one group's columns, a group cut into as
+    many as it needs and an empty group one empty segment.  ``seg_ptr``
+    (n_seg + 1,) int64 union-column bounds; ``seg_tag`` (n_seg,) int32 the
+    group of a group's only segment, or -1 - k for a segment of the k-th
+    group of several; ``multi`` (n_multi, 4) int32 rows (group, first
+    segment, segment count, first partial slot)."""
+
+    def __init__(self, plan: Plan, lanes: int | None = None, seg_cols: int | None = None):
+        dev = plan.grp_ptr.device
+        if lanes is None:
+            mean = plan.n_union / max(plan.n_groups, 1)
+            lanes = next((L for L in LANES if L * UNROLL >= mean), LANES[-1])
+        if lanes not in LANES:
+            raise ValueError(f"row-group SpMV: {lanes} lanes, not one of {LANES}")
+        self.lanes, self.group = lanes, plan.group
+        self.seg_cols = seg_cols or 2 * UNROLL * lanes
+        start = plan.grp_ptr[:-1]
+        n_seg_g = torch.clamp((plan.grp_ptr[1:] - start + self.seg_cols - 1) // self.seg_cols,
+                              min=1)
+        first = torch.cumsum(n_seg_g, 0) - n_seg_g
+        owner = torch.repeat_interleave(torch.arange(plan.n_groups, device=dev), n_seg_g)
+        self.n_seg = int(owner.numel())
+        seg_start = start[owner] + (torch.arange(self.n_seg, device=dev) - first[owner]) \
+            * self.seg_cols
+        self.seg_ptr = torch.cat([seg_start, plan.grp_ptr[-1:]])
+        multi = n_seg_g > 1
+        multi_id = torch.cumsum(multi.long(), 0) - 1
+        self.seg_tag = torch.where(multi[owner], -1 - multi_id[owner], owner).to(torch.int32)
+        count = n_seg_g[multi]
+        self.multi = torch.stack([torch.nonzero(multi).flatten(), first[multi], count,
+                                  torch.cumsum(count, 0) - count], 1).to(torch.int32)
+        self.n_multi = int(self.multi.shape[0])
+        self.n_partial = int(count.sum())
+        if max(self.n_seg, plan.n_groups, self.n_partial) >= 1 << 31:
+            raise ValueError("row-group SpMV: more than 2^31 segments")
+        self._scratch = {}
+
+    def scratch(self, stream, dtype: torch.dtype):
+        """(partial, tickets) of launches on ``stream`` in ``dtype``, made
+        once and kept (the launches of one stream run in order): the slots
+        of the partial sums (None where no group has several segments),
+        and the (n_multi,) int32 arrival counters of the groups of several
+        segments, zeroed once, since the kernel's last segment of a group
+        resets its counter."""
+        key = (stream.cuda_stream, dtype)
+        if key not in self._scratch:
+            dev = self.seg_ptr.device
+            partial = torch.empty(self.n_partial * self.group, dtype=dtype, device=dev) \
+                if self.n_partial else None
+            self._scratch[key] = (partial, torch.zeros(max(self.n_multi, 1), dtype=torch.int32,
+                                                       device=dev))
+        return self._scratch[key]
 
 
 def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape) -> Plan:
@@ -143,11 +236,50 @@ def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape) -> 
                 mask.to(torch.uint8), pvals, group, (n_rows, n_cols), nnz)
 
 
+def bsr_entries(bsr: BSR):
+    """(rows, cols, vals) of a BSR's stored entries, as ``to_coo`` counts
+    them, read from the blocks on their device a few hundred MB of mask at
+    a time (the 3.6 GB of a large low-fill freeze never leave the card)."""
+    t, br, bc = bsr.blocks.shape
+    step = max(_ENTRY_CHUNK // max(br * bc, 1), 1)
+    parts = []
+    for t0 in range(0, t, step):
+        blocks = bsr.blocks[t0:t0 + step]
+        stored = bsr.occ[t0:t0 + step] if bsr.occ is not None else blocks != 0
+        ti, r, k = torch.nonzero(stored, as_tuple=True)
+        parts.append((bsr.block_rows[t0 + ti].long() * br + r,
+                      bsr.block_cols[t0 + ti].long() * bc + k, blocks[ti, r, k]))
+    if not parts:
+        empty = torch.zeros(0, dtype=torch.int64, device=bsr.blocks.device)
+        return empty, empty, bsr.blocks.new_zeros(0)
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def plan_of(mat, check=None) -> Plan:
+    """The plan of a BSR, WELL, SlabELL or SlabPack (every part and every
+    overflow level in one), shared by its SpMV and SpMM: built on the
+    matrix's device at first use (a BSR's entries from its blocks, the
+    others' from ``to_coo``), after ``check(mat)`` where one is given, and
+    cached on it (a frozen matrix's layout and values never change)."""
+    plan = mat.__dict__.get("_rowgroup_plan")
+    if plan is None:
+        if check is not None:
+            check(mat)
+        if isinstance(mat, BSR):
+            entries = bsr_entries(mat)
+        else:
+            coo = mat.to_coo()
+            entries = (coo.rows, coo.cols, coo.vals)
+        plan = build(*entries, mat.shape)
+        object.__setattr__(mat, "_rowgroup_plan", plan)
+    return plan
+
+
 def walk(plan: Plan, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B by the kernel's arithmetic in its order, in plain torch:
-    each row's terms summed over its group's union columns in order, a
-    masked-off term skipped.  For the tests (the wrappers' plain versions
-    are the formats' own)."""
+    """Y = A @ B by the SpMM kernel's arithmetic in its order, in plain
+    torch: each row's terms summed over its group's union columns in
+    order, a masked-off term skipped.  For the tests (the wrappers' plain
+    versions are the formats' own)."""
     adt = accum_dtype(torch.promote_types(plan.vals.dtype, B.dtype))
     G, m = plan.group, B.shape[1]
     vals, Bc = plan.vals.to(adt), B.to(adt)
@@ -163,6 +295,46 @@ def walk(plan: Plan, B: torch.Tensor) -> torch.Tensor:
             on = ((bits >> i) & 1).bool()[:, None]
             acc[g, i] = torch.where(on, acc[g, i] + vals[i, u][:, None] * b, acc[g, i])
     return acc.reshape(plan.n_groups * G, m)[: plan.shape[0]]
+
+
+def spmv_walk(plan: Plan, x: torch.Tensor, split: SpmvSplit | None = None) -> torch.Tensor:
+    """y = A @ x by the SpMV kernel's arithmetic in its order, in plain
+    torch: each lane's sums over its union columns (lane, lane + L, ... of
+    its segment), a masked-off term skipped; the L lane sums added by the
+    kernel's butterfly; a group's segment sums added in segment order.
+    ``split`` defaults to the plan's own.  For the tests."""
+    split = split or plan.spmv
+    adt = accum_dtype(torch.promote_types(plan.vals.dtype, x.dtype))
+    G, L = plan.group, split.lanes
+    vals, xc = plan.vals.to(adt), x.to(adt)
+    dev = x.device
+    start = split.seg_ptr[:-1, None]
+    lens = split.seg_ptr[1:, None] - start
+    lane = torch.arange(L, device=dev)
+    acc = torch.zeros((split.n_seg, L, G), dtype=adt, device=dev)
+    for k in range(0, int(lens.max()) if split.n_seg else 0, L):
+        inside = k + lane < lens                                  # (n_seg, L)
+        u = torch.where(inside, start + k + lane, 0)
+        b = xc[plan.cols[u].long()]
+        bits = torch.where(inside, plan.mask[u].long(), 0)
+        for i in range(G):
+            on = ((bits >> i) & 1).bool()
+            acc[..., i] = torch.where(on, acc[..., i] + vals[i, u] * b, acc[..., i])
+    off = 1
+    while off < L:                                                # __shfl_xor_sync
+        acc = acc + acc[:, lane ^ off]
+        off <<= 1
+    seg = acc[:, 0]                                               # (n_seg, G)
+    y = torch.zeros((plan.n_groups, G), dtype=adt, device=dev)
+    single = split.seg_tag >= 0
+    y[split.seg_tag[single].long()] = seg[single]
+    grp, first, count = (split.multi[:, j].long() for j in range(3))
+    sums = torch.zeros((split.n_multi, G), dtype=adt, device=dev)
+    for j in range(int(count.max()) if split.n_multi else 0):
+        on = count > j
+        sums[on] = sums[on] + seg[first[on] + j]
+    y[grp] = sums
+    return y.reshape(-1)[: plan.shape[0]]
 
 
 def launch(plan: Plan, B: torch.Tensor, launches: dict, name: str) -> torch.Tensor:
@@ -189,3 +361,31 @@ def launch(plan: Plan, B: torch.Tensor, launches: dict, name: str) -> torch.Tens
         raise RuntimeError(f"{name}: CUDA error {rc} ({lib.smt_spmm_error_string(rc).decode()})")
     launches[name] += 1
     return Y
+
+
+def launch_spmv(plan: Plan, x: torch.Tensor, launches: dict, name: str) -> torch.Tensor:
+    """y = A @ x through ``rowgroup_spmv_kernel``, one launch (counted in
+    ``launches[name]``); x (n_cols,) on the plan's CUDA device.  bf16/f16
+    values and x are computed in f32."""
+    n_rows, _ = plan.shape
+    adt = accum_dtype(torch.promote_types(plan.vals.dtype, x.dtype))
+    vals = plan.vals_as(adt)
+    xc = x.to(adt).contiguous()
+    y = torch.empty(n_rows, dtype=adt, device=x.device)
+    if n_rows == 0:
+        return y
+    split = plan.spmv
+    stream = torch.cuda.current_stream(x.device)
+    partial, tickets = split.scratch(stream, adt)
+    lib = _spmv_kernels()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"smt_rowgroup_spmv_{_SUFFIX[adt]}")(
+            plan.cols.data_ptr(), plan.mask.data_ptr(), vals.data_ptr(), plan.n_union,
+            split.seg_ptr.data_ptr(), split.seg_tag.data_ptr(), split.multi.data_ptr(),
+            split.n_seg, plan.group, split.lanes, n_rows, xc.data_ptr(), y.data_ptr(),
+            partial.data_ptr() if partial is not None else None, tickets.data_ptr(),
+            stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.smt_spmv_error_string(rc).decode()})")
+    launches[name] += 1
+    return y

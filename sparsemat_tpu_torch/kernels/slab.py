@@ -5,29 +5,28 @@ the slab halves of two JAX modules: ``sparsemat_tpu/kernels/spmv.py``
 and their ``*_xla`` oracles) and ``sparsemat_tpu/kernels/spmm.py``
 (``slab_spmm_pallas``, ``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
 
-The SpMV kernels live in ``csrc/slab.cu`` (see the note there for what they
-replace and what bounds them): one launch per level of the matrix (its
-parts, then each overflow pack) over every block of every part, each result
-written straight to its global rows, the overflow's added on top.  The TPU's
-per-part calls and its ``_slab_pack_combine`` permutation have no
-counterpart.  The SlabStream kernel is one launch of one CTA per row block
-over the block's chunks; the TPU's SMEM-sized splits, chunk groups and
-resident y have no counterpart.  The SpMM does not read the padded layout:
-it launches the row-group kernel (``csrc/spmm.cu``) once per product over
-the matrix's compact plan (``kernels/_rowgroup.py``), which holds the
-stored entries of every part and of every overflow level, so a SlabPack
-with an overflow pack is one launch.  The plain versions keep the per-part
-loop and the permutation, so they and the kernels are independent.
+The SpMV and SpMM do not read the padded layout: each launches a row-group
+kernel (``csrc/spmv.cu`` and ``csrc/spmm.cu``, see the notes there for
+what they replace and what bounds them) once per product over the
+matrix's compact plan (``kernels/_rowgroup.py``), one plan shared by both,
+which holds the stored entries of every part and of every overflow level,
+so a SlabPack with an overflow pack is one launch.  The TPU's per-part
+calls and its ``_slab_pack_combine`` permutation have no counterpart.  The
+plain versions keep the per-part loop and the permutation, so they and the
+kernels are independent.  The SlabStream kernel (``csrc/slab.cu``) is one
+launch of one CTA per row block over the block's chunks; the TPU's
+SMEM-sized splits, chunk groups and resident y have no counterpart.
 
 Dtypes: the values and x / B are cast to the accumulation dtype of the two
 (bf16/f16 to f32) before the launch; the kernels run in f32 or f64.  One
-difference of the SpMM from its plain version: the kernel reads no padding
-slot, so where B holds inf or NaN in a row that a padding slot points at,
-it gives what a CSR SpMM gives (scipy, ``torch.sparse.mm``) and not the
-slot's 0·inf = NaN; for a finite B the two agree.  A wrapper takes the
-plain version only when its tensors lie on the CPU; on a CUDA tensor it
-launches its kernel or raises.  The layout is checked once per matrix and
-the launch plans cached on it (``_plan``, ``spmm_plan``).
+difference of the row-group kernels from their plain versions: they read
+no padding slot, so where x or B holds inf or NaN in a row that a padding
+slot points at, they give what a CSR product gives (scipy, ``torch.mv``,
+``torch.sparse.mm``) and not the slot's 0·inf = NaN; for a finite operand
+the two agree.  A wrapper takes the plain version only when its tensors
+lie on the CPU; on a CUDA tensor it launches its kernel or raises.  The
+layout is checked once per matrix, when its plan is built, and the plans
+are cached on it (``_rowgroup.plan_of``, ``_StreamPlan``).
 """
 
 from __future__ import annotations
@@ -43,8 +42,8 @@ from .._build import load_cuda
 from . import _rowgroup
 from ._common import block_ranges, gather
 
-#: kernel launches (plain versions do not count); a SlabPack with an
-#: overflow pack launches the SpMV twice per product, the SpMM once
+#: kernel launches (plain versions do not count): one per product, any
+#: number of overflow levels
 LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -59,15 +58,12 @@ def reset_launches() -> None:
 
 
 def _kernels() -> ctypes.CDLL:
-    """The built and bound ``csrc/slab.cu`` library."""
+    """The built and bound ``csrc/slab.cu`` library (the SlabStream SpMV)."""
     global _lib
     if _lib is None:
         lib = load_cuda("slab")
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for s in _SUFFIX.values():
-            fn = getattr(lib, f"smt_slab_spmv_{s}")
-            fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp, vp, i32, vp]
-            fn.restype = i32
             fn = getattr(lib, f"smt_slab_stream_spmv_{s}")
             fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i64, i64, vp, vp, vp]
             fn.restype = i32
@@ -159,100 +155,24 @@ def slab_stream_spmv_ref(st: SlabStream, x: torch.Tensor) -> torch.Tensor:
 
 # --- the kernels -----------------------------------------------------------------
 
-def _levels(mat):
-    """[(parts, block ids per part, rb), ...]: the matrix's parts, then each
-    nested overflow pack's."""
+def _parts(mat):
+    """Every SlabELL of a SlabELL or SlabPack, overflow levels included."""
     if isinstance(mat, SlabELL):
-        return [((mat,), (tuple(range(mat.n_row_blocks)),), mat.row_block)]
-    out = [(mat.parts, mat.block_ids, mat.row_block)]
-    if mat.overflow is not None:
-        if tuple(mat.overflow.shape) != tuple(mat.shape):
-            raise ValueError("slab kernels: the overflow pack's shape differs from "
-                             "the matrix's")
-        out += _levels(mat.overflow)
-    return out
+        return [mat]
+    return list(mat.parts) + (_parts(mat.overflow) if mat.overflow is not None else [])
 
 
-def _part_table(parts, vals, wofs, device) -> torch.Tensor:
-    """(n_parts, 6) int64 device table: the pointers of each part's vals /
-    lidx / win_lo / per-slot window ids, then C and the part's first block
-    in the flat grid."""
-    first = np.cumsum([0] + [p.n_row_blocks for p in parts])
-    rows = [[v.data_ptr(), p.lidx.data_ptr(), p.win_lo.data_ptr(), w.data_ptr(),
-             p.c_total, int(f)] for p, v, w, f in zip(parts, vals, wofs, first)]
-    return torch.tensor(rows, dtype=torch.int64).to(device)
-
-
-class _Level:
-    """One launch's table: parts, per-slot window ids, and the part index
-    and global block id of every block of the flat grid."""
-
-    def __init__(self, parts, block_ids, rb, first: bool, n_rows: int, device):
-        for p, ids in zip(parts, block_ids):
-            nb, c, prb = p.vals.shape
-            if (prb != rb or tuple(p.lidx.shape) != (nb, c, rb)
-                    or tuple(p.win_lo.shape) != (nb,) or len(ids) != nb
-                    or sum(h for _, h in p.buckets) != c):
-                raise ValueError("slab kernels: a part's arrays do not form a SlabELL "
-                                 "layout")
-            if p.lidx.dtype != torch.int32 or p.win_lo.dtype != torch.int32:
-                raise TypeError("slab kernels: lidx and win_lo must be int32")
-            if not all(t.is_contiguous() for t in (p.vals, p.lidx, p.win_lo)):
-                raise ValueError("slab kernels: the kernels need contiguous part arrays")
-        if rb % 32 or not 0 < rb <= 1024:
-            raise ValueError(f"slab kernels: row block {rb} is not a multiple of 32 "
-                             f"up to 1024")
-        ids = np.concatenate([np.asarray(i, np.int64) for i in block_ids])
-        srt = np.sort(ids)
-        need = -(-n_rows // rb)
-        if (ids.size and (srt[0] < 0 or srt[-1] >= 2 ** 31 or np.any(np.diff(srt) == 0))) \
-                or (first and not np.array_equal(srt[:need], np.arange(need))):
-            raise ValueError("slab kernels: every row block must be in exactly one part")
-        self.parts = parts
-        self.rb = rb
-        self.n_blocks = int(ids.size)
-        self.part_of = torch.from_numpy(np.concatenate(
-            [np.full(p.n_row_blocks, i, np.int32) for i, p in enumerate(parts)])).to(device)
-        self.block_ids = torch.from_numpy(ids.astype(np.int32)).to(device)
-        self.wofs = [torch.from_numpy(p._window_of_cpos()).to(device) for p in parts]
-        self.table = _part_table(parts, [p.vals for p in parts], self.wofs, device)
-
-    def table_for(self, adt: torch.dtype):
-        """The table over the parts' values cast to ``adt``, and the casts
-        (kept alive by the caller until the launch is enqueued; the caching
-        allocator keeps them until it has run on this stream)."""
-        if adt == self.parts[0].vals.dtype:
-            return self.table, None
-        vals = [p.vals.to(adt) for p in self.parts]
-        return _part_table(self.parts, vals, self.wofs, vals[0].device), vals
-
-
-class _Plan:
-    """The launch levels of a SlabELL or SlabPack, checked once."""
-
-    def __init__(self, mat):
-        dev = mat.data.device
-        levels = _levels(mat)
-        tensors = [t for parts, _, _ in levels for p in parts for t in (p.vals, p.lidx, p.win_lo)]
-        if dev.type != "cuda" or any(t.device != dev for t in tensors):
-            raise ValueError(f"slab kernels: the kernels need every part on one CUDA "
-                             f"device, got {dev}")
-        dtypes = {p.vals.dtype for parts, _, _ in levels for p in parts}
-        if len(dtypes) != 1 or mat.dtype not in FLOAT_DTYPES:
-            raise TypeError(f"slab kernels: the CUDA kernels take float values of one "
-                            f"dtype, got {sorted(map(str, dtypes))}")
-        self.levels = [_Level(parts, ids, rb, i == 0, mat.shape[0], dev)
-                       for i, (parts, ids, rb) in enumerate(levels)]
-
-
-def _plan(mat) -> _Plan:
-    """The matrix's launch plan, cached on it (a frozen matrix's layout and
-    values never change)."""
-    plan = mat.__dict__.get("_slab_plan")
-    if plan is None:
-        plan = _Plan(mat)
-        object.__setattr__(mat, "_slab_plan", plan)
-    return plan
+def _check_layout(mat) -> None:
+    """The parts' arrays on one CUDA device and float values: checked once
+    per matrix, when its plan is built."""
+    dev = mat.data.device
+    parts = _parts(mat)
+    if dev.type != "cuda" or any(t.device != dev for p in parts
+                                 for t in (p.vals, p.lidx, p.win_lo)):
+        raise ValueError(f"slab kernels: the kernels need every part on one CUDA device, "
+                         f"got {dev}")
+    if any(p.vals.dtype not in FLOAT_DTYPES for p in parts):
+        raise TypeError(f"slab kernels: the CUDA kernels take float values, got {mat.dtype}")
 
 
 def _check_operand(mat, X: torch.Tensor, kind: str, want: tuple) -> None:
@@ -267,55 +187,16 @@ def _check_operand(mat, X: torch.Tensor, kind: str, want: tuple) -> None:
 
 
 def _launch_spmv(mat, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through ``slab_spmv_kernel``, one launch per level."""
-    n_rows, n_cols = mat.shape
-    _check_operand(mat, x, "slab_spmv", (n_cols,))
-    plan = _plan(mat)
-    adt = accum_dtype(torch.promote_types(mat.dtype, x.dtype))
-    x = x.to(adt).contiguous()
-    y = torch.empty((n_rows,), dtype=adt, device=x.device)
-    if y.numel() == 0:
-        return y
-    lib = _kernels()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i, lvl in enumerate(plan.levels):
-        table, _casts = lvl.table_for(adt)
-        with torch.cuda.device(x.device):
-            rc = getattr(lib, f"smt_slab_spmv_{_SUFFIX[adt]}")(
-                table.data_ptr(), lvl.part_of.data_ptr(), lvl.block_ids.data_ptr(),
-                lvl.n_blocks, lvl.rb, n_rows, n_cols, x.data_ptr(), y.data_ptr(),
-                int(i > 0), stream)
-        if rc != 0:
-            msg = lib.smt_slab_error_string(rc).decode()
-            raise RuntimeError(f"slab_spmv: CUDA error {rc} ({msg})")
-        LAUNCHES["slab_spmv"] += 1
-    return y
-
-
-def spmm_plan(mat) -> _rowgroup.Plan:
-    """The row-group plan of a SlabELL or SlabPack (every part and every
-    overflow level in one), built from ``to_coo`` on the matrix's device
-    at first use and cached on it."""
-    plan = mat.__dict__.get("_spmm_plan")
-    if plan is None:
-        coo = mat.to_coo()
-        plan = _rowgroup.build(coo.rows, coo.cols, coo.vals, mat.shape)
-        object.__setattr__(mat, "_spmm_plan", plan)
-    return plan
+    """y = A @ x through ``rowgroup_spmv_kernel``, one launch per product."""
+    _check_operand(mat, x, "slab_spmv", (mat.shape[1],))
+    return _rowgroup.launch_spmv(_rowgroup.plan_of(mat, _check_layout), x, LAUNCHES,
+                                 "slab_spmv")
 
 
 def _launch_spmm(mat, B: torch.Tensor) -> torch.Tensor:
     """Y = A @ B through ``rowgroup_spmm_kernel``, one launch per product."""
     _check_operand(mat, B, "slab_spmm", (mat.shape[1], B.shape[-1]))
-    parts = [p for parts, _, _ in _levels(mat) for p in parts]
-    dev = mat.data.device
-    if dev.type != "cuda" or any(t.device != dev for p in parts
-                                 for t in (p.vals, p.lidx, p.win_lo)):
-        raise ValueError(f"slab_spmm: the kernel needs every part on one CUDA device, "
-                         f"got {dev}")
-    if any(p.vals.dtype not in FLOAT_DTYPES for p in parts):
-        raise TypeError(f"slab_spmm: the CUDA kernel takes float values, got {mat.dtype}")
-    return _rowgroup.launch(spmm_plan(mat), B, LAUNCHES, "slab_spmm")
+    return _rowgroup.launch(_rowgroup.plan_of(mat, _check_layout), B, LAUNCHES, "slab_spmm")
 
 
 def _on_cpu(mat, X) -> bool:
@@ -323,14 +204,15 @@ def _on_cpu(mat, X) -> bool:
 
 
 def slab_spmv(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over a SlabELL.  CUDA: one launch of ``slab_spmv_kernel``;
-    CPU: the plain version."""
+    """y = A @ x over a SlabELL.  CUDA: one launch of ``rowgroup_spmv_kernel``
+    over the plan; CPU: the plain version."""
     return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch_spmv(sl, x)
 
 
 def slab_pack_spmv(pack: SlabPack, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over a SlabPack.  CUDA: one launch of ``slab_spmv_kernel``
-    over all parts, one more per overflow pack; CPU: the plain version."""
+    """y = A @ x over a SlabPack.  CUDA: one launch of
+    ``rowgroup_spmv_kernel`` over the plan of all parts and overflow
+    levels; CPU: the plain version."""
     return slab_pack_spmv_ref(pack, x) if _on_cpu(pack, x) else _launch_spmv(pack, x)
 
 

@@ -7,7 +7,8 @@ wrapper launches ``rowgroup_spmm_kernel`` (``csrc/spmm.cu``, see the note
 there for what it replaces and what bounds it) over the matrix's compact
 launch plan (``kernels/_rowgroup.py``): the stored entries only, built once
 per matrix on its device from the blocks (``occ`` where the freeze made
-one, nonzero values where it did not), cached on the matrix.  The zero
+one, nonzero values where it did not, ``_rowgroup.bsr_entries``), cached
+on the matrix.  The zero
 slots of the blocks are not read, so the TPU's per-block MXU products, its
 first-visit zeroing and its chunked calls have no counterpart.  The plain
 version is the JAX package's ``bsr_spmm_xla``: a batched product of every
@@ -34,8 +35,6 @@ from . import _rowgroup
 
 #: kernel launches (plain versions do not count)
 LAUNCHES = {"bsr_spmm": 0}
-#: block slots whose stored-entry mask one step of the plan build holds
-_ENTRY_CHUNK = 1 << 28
 
 
 def reset_launches() -> None:
@@ -82,35 +81,6 @@ def bsr_spmm_ref(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
 
 # --- the kernel ----------------------------------------------------------------
 
-def bsr_entries(bsr: BSR):
-    """(rows, cols, vals) of the stored entries, as ``to_coo`` counts them,
-    read from the blocks on their device a few hundred MB of mask at a
-    time (the 3.6 GB of a large low-fill freeze never leave the card)."""
-    t, br, bc = bsr.blocks.shape
-    step = max(_ENTRY_CHUNK // max(br * bc, 1), 1)
-    parts = []
-    for t0 in range(0, t, step):
-        blocks = bsr.blocks[t0:t0 + step]
-        stored = bsr.occ[t0:t0 + step] if bsr.occ is not None else blocks != 0
-        ti, r, k = torch.nonzero(stored, as_tuple=True)
-        parts.append((bsr.block_rows[t0 + ti].long() * br + r,
-                      bsr.block_cols[t0 + ti].long() * bc + k, blocks[ti, r, k]))
-    if not parts:
-        empty = torch.zeros(0, dtype=torch.int64, device=bsr.blocks.device)
-        return empty, empty, bsr.blocks.new_zeros(0)
-    return tuple(torch.cat(x) for x in zip(*parts))
-
-
-def spmm_plan(bsr: BSR) -> _rowgroup.Plan:
-    """The matrix's row-group plan, built on its device at first use and
-    cached on it (a frozen matrix's layout and values never change)."""
-    plan = bsr.__dict__.get("_spmm_plan")
-    if plan is None:
-        plan = _rowgroup.build(*bsr_entries(bsr), bsr.shape)
-        object.__setattr__(bsr, "_spmm_plan", plan)
-    return plan
-
-
 def bsr_spmm(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
     """Y = A @ B.  CUDA: one launch of ``rowgroup_spmm_kernel`` over the
     plan; CPU: the plain version."""
@@ -132,7 +102,7 @@ def bsr_spmm(bsr: BSR, B: torch.Tensor) -> torch.Tensor:
     if bsr.blocks.dtype not in FLOAT_DTYPES:
         raise TypeError(f"bsr_spmm: the CUDA kernel takes float blocks, got "
                         f"{bsr.blocks.dtype}")
-    return _rowgroup.launch(spmm_plan(bsr), B, LAUNCHES, "bsr_spmm")
+    return _rowgroup.launch(_rowgroup.plan_of(bsr), B, LAUNCHES, "bsr_spmm")
 
 
 def spmm_pallas(mat, B: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The row-group SpMM plan (``kernels/_rowgroup.py``) against the JAX
-package on the same seeded inputs: the plan of every BSR, SlabELL and
-SlabPack holds exactly the entries its ``to_coo`` counts (stored zeros
-kept, padding and zero blocks gone, overflow levels merged), compared on
+"""The row-group plan (``kernels/_rowgroup.py``) against the JAX package on
+the same seeded inputs: the plan of every BSR, SlabELL, SlabPack and WELL
+holds exactly the entries its ``to_coo`` counts (stored zeros kept,
+padding, dummy tiles and zero blocks gone, overflow levels merged), compared on
 values with the JAX package's ``to_csr`` and with scipy; the plan's walk
 in the kernel's order equals ``bsr_spmm_xla``, ``slab_spmm_xla`` and the
 interpret-mode ``slab_pack_spmm_pallas``; the grouping follows the
@@ -75,7 +75,7 @@ MATRICES = {
     "fem_900": lambda: fem(300),
     "empty": lambda: sp.csr_matrix((77, 130), dtype=np.float32),
 }
-#: (label, freeze) of the formats whose SpMM runs the row-group kernel
+#: (label, freeze) of the formats whose SpMV or SpMM runs a row-group kernel
 FREEZES = {
     "bsr_8x128": lambda c: tsm.BSR.from_csr(c),
     "bsr_64x256": lambda c: tsm.BSR.from_csr(c, br=64, bc=256),
@@ -84,11 +84,8 @@ FREEZES = {
     "slab_256": lambda c: c.to_slab(rb=256),
     "pack": lambda c: c.to_slab_pack(),
     "pack_rb128_c3": lambda c: tsm.SlabPack.from_csr(c, rb=128, n_classes=3),
+    "well": lambda c: c.to_well(),
 }
-
-
-def plan_of(mat):
-    return ksp.spmm_plan(mat) if isinstance(mat, tsm.BSR) else ksl.spmm_plan(mat)
 
 
 def plan_entries(plan):
@@ -129,7 +126,8 @@ def jax_freeze(jsm, m, label):
             "slab_128": lambda: jc.to_slab(rb=128),
             "slab_256": lambda: jc.to_slab(rb=256),
             "pack": lambda: jc.to_slab_pack(),
-            "pack_rb128_c3": lambda: jsm.SlabPack.from_csr(jc, rb=128, n_classes=3)}[label]()
+            "pack_rb128_c3": lambda: jsm.SlabPack.from_csr(jc, rb=128, n_classes=3),
+            "well": lambda: jc.to_well()}[label]()
 
 
 # -- the plan's entries ----------------------------------------------------------------
@@ -141,7 +139,7 @@ def test_plan_holds_exactly_the_entries(name, label):
     m = MATRICES[name]()
     m.sort_indices()
     mat = FREEZES[label](tsm.CSR.from_scipy(m))
-    plan = plan_of(mat)
+    plan = rg.plan_of(mat)
     got = plan_entries(plan)
     coo = mat.to_coo()
     stored = coo.rows.long() < m.shape[0]
@@ -160,7 +158,7 @@ def test_plan_holds_exactly_the_entries(name, label):
     assert 1 <= plan.group <= rg.MAX_GROUP and plan.n_groups == -(-m.shape[0] // plan.group)
     assert plan.grp_ptr[-1] == plan.n_union
     if isinstance(mat, tsm.SlabPack) and mat.overflow is not None:
-        assert plan_of(mat) is plan                  # built once, parts and overflow merged
+        assert rg.plan_of(mat) is plan                  # built once, parts and overflow merged
 
 
 def test_plan_drops_entries_outside_the_matrix_and_keeps_duplicates():
@@ -180,7 +178,7 @@ def test_plan_drops_entries_outside_the_matrix_and_keeps_duplicates():
 def test_slab_pack_of_a_bsr_freeze_has_the_same_plan():
     m = fem(400)
     c = tsm.CSR.from_scipy(m)
-    a, b = ksp.spmm_plan(tsm.BSR.from_csr_device(c, br=512)), ksl.spmm_plan(c.to_slab_pack())
+    a, b = rg.plan_of(tsm.BSR.from_csr_device(c, br=512)), rg.plan_of(c.to_slab_pack())
     assert a.group == b.group
     for f in ("grp_ptr", "cols", "mask", "vals"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -189,14 +187,14 @@ def test_slab_pack_of_a_bsr_freeze_has_the_same_plan():
 # -- the grouping --------------------------------------------------------------------------
 
 def test_dof_rows_of_a_node_share_one_group():
-    plan = ksl.spmm_plan(tsm.CSR.from_scipy(fem(1500).astype(np.float32)).to_slab_pack())
+    plan = rg.plan_of(tsm.CSR.from_scipy(fem(1500).astype(np.float32)).to_slab_pack())
     assert plan.group == 3
     assert plan.padding < 0.08                         # only the node's diagonal differs
 
 
 def test_scattered_rows_take_groups_of_one():
     m = scattered(2000, 3000, 0.002, 2)
-    plan = ksl.spmm_plan(tsm.CSR.from_scipy(m).to_slab())
+    plan = rg.plan_of(tsm.CSR.from_scipy(m).to_slab())
     assert plan.group == 1 and plan.padding == 0.0 and plan.n_union == m.nnz
 
 
@@ -211,9 +209,9 @@ def test_walk_matches_bsr_and_slab_xla_oracles(name, m_rhs, dt, tol):
     B = np.random.default_rng(m_rhs).standard_normal((m.shape[1], m_rhs)).astype(dt)
     tc, jc = tsm.CSR.from_scipy(m), jsm.CSR.from_scipy(m)
     Bt, Bj = torch.from_numpy(B), jnp.asarray(B)
-    cases = [(ksp.spmm_plan(tsm.BSR.from_csr(tc, br=16, bc=256)),
+    cases = [(rg.plan_of(tsm.BSR.from_csr(tc, br=16, bc=256)),
               jks.bsr_spmm_xla(jsm.BSR.from_csr(jc, br=16, bc=256), Bj)),
-             (ksl.spmm_plan(tc.to_slab(rb=128)), jks.slab_spmm_xla(jc.to_slab(rb=128), Bj))]
+             (rg.plan_of(tc.to_slab(rb=128)), jks.slab_spmm_xla(jc.to_slab(rb=128), Bj))]
     for plan, want in cases:
         got = rg.walk(plan, Bt)
         assert got.dtype == Bt.dtype and got.shape == (m.shape[0], m_rhs)
@@ -229,7 +227,7 @@ def test_walk_matches_the_slab_pack_pallas_composition(name):
     tp = tsm.SlabPack.from_csr(tsm.CSR.from_scipy(m), rb=128, n_classes=3)
     B = np.random.default_rng(2).standard_normal((m.shape[1], 3)).astype(np.float32)
     want = jks.slab_pack_spmm_pallas(jp, jnp.asarray(B), interpret=True)
-    got = rg.walk(ksl.spmm_plan(tp), torch.from_numpy(B))
+    got = rg.walk(rg.plan_of(tp), torch.from_numpy(B))
     assert rel_err(got, want) < 1e-5
     assert rel_err(got, ksl.slab_pack_spmm_ref(tp, torch.from_numpy(B))) < 1e-5
 
@@ -238,7 +236,7 @@ def test_walk_of_bf16_values_is_computed_in_f32():
     m = MATRICES["fem_900"]()
     mat = tsm.CSR.from_scipy(m).astype(torch.bfloat16).to_slab_pack()
     B = torch.from_numpy(np.random.default_rng(3).standard_normal((m.shape[1], 4))).float()
-    plan = ksl.spmm_plan(mat)
+    plan = rg.plan_of(mat)
     assert plan.vals.dtype == torch.float32
     got = rg.walk(plan, B.to(torch.bfloat16))
     assert got.dtype == torch.float32
@@ -258,7 +256,7 @@ def test_walk_skips_what_the_plan_masks_off():
     want = m @ B                      # scipy: NaN only where a stored entry meets inf/NaN
     assert np.isnan(want[r0, 0]) and not np.isnan(want[:, 1]).any()
     for mat in (tsm.BSR.from_csr(tsm.CSR.from_scipy(m)), tsm.CSR.from_scipy(m).to_slab()):
-        got = rg.walk(plan_of(mat), torch.from_numpy(B)).numpy()
+        got = rg.walk(rg.plan_of(mat), torch.from_numpy(B)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
     dense = ksp.bsr_spmm_ref(tsm.BSR.from_csr(tsm.CSR.from_scipy(m)), torch.from_numpy(B))
     assert torch.isnan(dense[:, 1]).any()    # the plain version's dense blocks: 0 · NaN
@@ -267,7 +265,7 @@ def test_walk_skips_what_the_plan_masks_off():
 def test_plan_of_a_bsr_without_tiles_and_of_no_rows():
     none = tsm.BSR(blocks=torch.zeros((0, 8, 128)), block_rows=torch.zeros(0, dtype=torch.int32),
                    block_cols=torch.zeros(0, dtype=torch.int32), occ=None, shape=(64, 256))
-    plan = ksp.spmm_plan(none)
+    plan = rg.plan_of(none)
     assert plan.nnz == plan.n_union == 0 and plan.group == 1 and plan.n_groups == 64
     assert torch.equal(rg.walk(plan, torch.ones(256, 2)), torch.zeros(64, 2))
     plan = rg.build(torch.zeros(0), torch.zeros(0), torch.zeros(0), (0, 5))
@@ -277,8 +275,8 @@ def test_plan_of_a_bsr_without_tiles_and_of_no_rows():
 def test_plan_is_cached_per_matrix():
     m = MATRICES["holes_300x520"]()
     b = tsm.BSR.from_csr(tsm.CSR.from_scipy(m))
-    assert ksp.spmm_plan(b) is ksp.spmm_plan(b)
+    assert rg.plan_of(b) is rg.plan_of(b)
     b64 = b.astype(torch.float64)                      # a new matrix: a plan of its own
-    assert "_spmm_plan" not in b64.__dict__
-    assert ksp.spmm_plan(b64).vals.dtype == torch.float64
-    assert ksp.spmm_plan(b).vals_as(torch.float64) is ksp.spmm_plan(b).vals_as(torch.float64)
+    assert "_rowgroup_plan" not in b64.__dict__
+    assert rg.plan_of(b64).vals.dtype == torch.float64
+    assert rg.plan_of(b).vals_as(torch.float64) is rg.plan_of(b).vals_as(torch.float64)

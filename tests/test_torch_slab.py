@@ -408,7 +408,6 @@ def on_card(kind, name, arg, device):
 @pytest.mark.parametrize("kind,name,arg", CUDA_CASES)
 def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     mat = on_card(kind, name, arg, cuda).astype(dtype)
-    n_levels = 1 + (kind == "slab_pack" and mat.overflow is not None)
     spmv, spmv_ref, spmm, spmm_ref = (
         (ksl.slab_spmv, ksl.slab_spmv_ref, ksl.slab_spmm, ksl.slab_spmm_ref) if kind == "slab"
         else (ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref, ksl.slab_pack_spmm,
@@ -419,7 +418,8 @@ def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     y = spmv(mat, x)
     y_ref = spmv_ref(mat, x)
     torch.cuda.synchronize()
-    assert ksl.LAUNCHES == {"slab_spmv": n_levels, "slab_spmm": 0, "slab_stream_spmv": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": 1, "slab_spmm": 0,     # one launch a product,
+                            "slab_stream_spmv": 0}               # any level count
     assert y.dtype == y_ref.dtype and y.shape == (mat.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(spmv(mat, x), y)                   # reruns bitwise

@@ -4,8 +4,8 @@ empty row blocks, stored zeros and nnz = 0 included) and the ``chunks`` the
 port's checkpoint writes are the JAX freeze's; the plain SpMV matches the
 XLA oracle and the Pallas kernel in interpret mode, as does
 ``spmv(method='pallas')``; round trips keep stored zeros; the CUDA kernel's
-walk over the plan's segments of each row block's tiles, replayed in numpy,
-gives A @ x for tiles in and out of row-block order and for blocks cut into
+walk over the row-group plan (``kernels/_rowgroup.py``), replayed in torch,
+gives A @ x for tiles in and out of row-block order and for groups cut into
 many segments; and (on a CUDA card) the kernel matches the plain version.
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (another summation
@@ -23,8 +23,8 @@ import torch
 
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
-from sparsemat_tpu_torch.formats.well import ROW_BLOCK, WINDOW, chunk_bounds
-from sparsemat_tpu_torch.kernels._common import block_ranges
+from sparsemat_tpu_torch.formats.well import ROW_BLOCK, chunk_bounds
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import well as kw
 
 WELL_ARRAYS = ("vals", "lidx", "tile_rows", "tile_wins", "row_cnt")
@@ -224,78 +224,59 @@ def test_dispatch_and_cpu_wrapper_counts_nothing():
 
 # -- the CUDA kernel's design, replayed on the host ---------------------------------
 
-def replay_cuda_design(well, x, seg_slots=kw.SEG_SLOTS):
-    """csrc/well.cu in numpy: the layout in row-block order, cut into the
-    plan's segments (``kw.segments``); each segment's slot products summed
-    per row; a block of one segment written from it, a block of several
-    from its segments' partials summed in segment order."""
-    n_rows, n_cols = well.shape
-    n_rb = -(-n_rows // ROW_BLOCK)
-    k = well.k_tile
-    slots = ROW_BLOCK * k
-    vals, lidx = well.vals.double().numpy(), well.lidx.numpy()
-    wins, rows = well.tile_wins.numpy(), well.host("tile_rows").astype(np.int64)
-    _, order = block_ranges(rows, n_rb)
-    if order is not None:
-        vals, lidx, wins, rows = vals[order], lidx[order], wins[order], rows[order]
-    seg_ptr, seg_block, seg_multi, multi_first, multi_count = kw.segments(rows, n_rb, slots,
-                                                                          seg_slots)
-    flat_v, flat_l = vals.reshape(-1), lidx.reshape(-1)
-    xp = np.concatenate([x, np.zeros(1)])
-    partial = np.zeros((seg_block.size, ROW_BLOCK))
-    y = np.full(n_rb * ROW_BLOCK, np.nan)
-    for s in range(seg_block.size):
-        lo, hi = seg_ptr[s] * slots, seg_ptr[s + 1] * slots
-        o = np.arange(hi - lo)
-        cols = wins[seg_ptr[s] + o // slots] * WINDOW + flat_l[lo:hi]
-        prod = flat_v[lo:hi] * xp[np.where(cols < n_cols, cols, n_cols)]
-        acc = np.bincount((o % slots) // k, prod, minlength=ROW_BLOCK)
-        if seg_multi[s] < 0:
-            b = seg_block[s]
-            y[b * ROW_BLOCK:(b + 1) * ROW_BLOCK] = acc
-        else:
-            partial[s] = acc
-    for first, count in zip(multi_first, multi_count):
-        b = seg_block[first]
-        assert np.all(seg_block[first:first + count] == b)
-        y[b * ROW_BLOCK:(b + 1) * ROW_BLOCK] = partial[first:first + count].sum(axis=0)
-    assert not np.isnan(y).any()                          # every row block written
-    return y[:n_rows]
+def shuffled_with_stray(tw):
+    """The tiles of ``tw`` in a random order, plus one tile aimed past the
+    last row block."""
+    perm = np.random.default_rng(7).permutation(tw.n_tiles)
+    stray = dict(vals=torch.ones(1, ROW_BLOCK, tw.k_tile, dtype=tw.vals.dtype),
+                 lidx=torch.zeros(1, ROW_BLOCK, tw.k_tile, dtype=torch.int32),
+                 tile_rows=torch.tensor([tw.n_row_blocks + 3], dtype=torch.int32),
+                 tile_wins=torch.zeros(1, dtype=torch.int32),
+                 row_cnt=torch.full((1, ROW_BLOCK), tw.k_tile, dtype=torch.int32))
+    return dataclasses.replace(
+        tw, **{f: torch.cat([getattr(tw, f)[torch.from_numpy(perm)], stray[f]])
+               for f in WELL_ARRAYS})
 
 
-@pytest.mark.parametrize("seg_slots", [kw.SEG_SLOTS, 1])
+@pytest.mark.parametrize("seg_cols", [2048, 1])
 @pytest.mark.parametrize("name", ["random_5pct", "dense_row", "empty_rows", "nnz0"])
-def test_cuda_design_replay_in_and_out_of_block_order(name, seg_slots):
-    """seg_slots = 1 cuts every block into one-tile segments, so each block
-    of several tiles takes the partials path."""
+def test_cuda_design_replay_in_and_out_of_block_order(name, seg_cols):
+    """The row-group SpMV's walk (``csrc/spmv.cu`` in plain torch) over the
+    WELL's plan; seg_cols = 1 cuts every group into one-column segments,
+    so each group of several columns takes the partials path.  A WELL
+    whose tiles arrive shuffled, with a tile past the last row block, has
+    the same plan."""
     m = MATRICES[name]
     tw = tsm.CSR.from_scipy(m.astype(np.float64)).to_well(k_tile=4)
     x = np.random.default_rng(6).standard_normal(m.shape[1])
     want = m.astype(np.float64) @ x
-    assert rel_err(replay_cuda_design(tw, x, seg_slots), want) < 1e-12
-    # the same tiles shuffled, plus one tile aimed past the last row block
-    perm = np.random.default_rng(7).permutation(tw.n_tiles)
-    stray = dict(vals=torch.ones(1, ROW_BLOCK, tw.k_tile, dtype=torch.float64),
-                 lidx=torch.zeros(1, ROW_BLOCK, tw.k_tile, dtype=torch.int32),
-                 tile_rows=torch.tensor([tw.n_row_blocks + 3], dtype=torch.int32),
-                 tile_wins=torch.zeros(1, dtype=torch.int32),
-                 row_cnt=torch.zeros(1, ROW_BLOCK, dtype=torch.int32))
-    shuffled = dataclasses.replace(
-        tw, **{f: torch.cat([getattr(tw, f)[torch.from_numpy(perm)], stray[f]])
-               for f in WELL_ARRAYS})
-    assert rel_err(replay_cuda_design(shuffled, x, seg_slots), want) < 1e-12
+    plan = rg.plan_of(tw)
+    split = rg.SpmvSplit(plan, seg_cols=seg_cols)
+    assert rel_err(rg.spmv_walk(plan, torch.from_numpy(x), split), want) < 1e-12
+    shuffled = shuffled_with_stray(tw)
+    other = rg.plan_of(shuffled)
+    for f in ("grp_ptr", "cols", "mask", "vals"):
+        assert torch.equal(getattr(other, f), getattr(plan, f)), f
+    got = rg.spmv_walk(other, torch.from_numpy(x), rg.SpmvSplit(other, seg_cols=seg_cols))
+    assert rel_err(got, want) < 1e-12
     assert rel_err(kw.well_spmv_ref(shuffled, torch.from_numpy(x)), want) < 1e-12
 
 
 def test_segments_cover_every_block_once():
-    rows = np.array([0, 0, 0, 0, 0, 2, 3, 3, 5])               # blocks 1 and 4 have no tiles
-    seg_ptr, seg_block, seg_multi, first, count = kw.segments(rows, 6, slots=8, seg_slots=16)
-    assert list(seg_block) == [0, 0, 0, 1, 2, 3, 4, 5]          # 2 tiles a segment
-    assert list(seg_ptr) == [0, 2, 4, 5, 5, 6, 8, 8, 9]
-    assert list(seg_multi) == [0, 0, 0, -1, -1, -1, -1, -1]
-    assert list(first) == [0] and list(count) == [3]
-    seg_ptr, seg_block, *_ = kw.segments(np.array([0, 1, 9]), 2, slots=8)
-    assert seg_ptr[-1] == 2                                     # a tile past the last block
+    """Rows that share no column, so groups of one row: row 0 holds 5
+    entries (cut into segments of 2), rows 1 and 4 none (one empty segment
+    each)."""
+    rows = torch.tensor([0, 0, 0, 0, 0, 2, 3, 3, 5])
+    cols = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8])
+    plan = rg.build(rows, cols, torch.ones(9), (6, 20))
+    assert plan.group == 1
+    split = rg.SpmvSplit(plan, lanes=4, seg_cols=2)
+    assert split.seg_ptr.tolist() == [0, 2, 4, 5, 5, 6, 8, 8, 9]
+    assert split.seg_tag.tolist() == [-1, -1, -1, 1, 2, 3, 4, 5]
+    assert split.multi.tolist() == [[0, 0, 3, 0]]          # group, first, count, slot
+    assert (split.n_seg, split.n_multi, split.n_partial) == (8, 1, 3)
+    np.testing.assert_array_equal(rg.spmv_walk(plan, torch.ones(20), split).numpy(),
+                                  [5, 0, 1, 2, 0, 1])
 
 
 # -- canonical views and structure ----------------------------------------------------
@@ -366,27 +347,34 @@ def test_cuda_kernel_matches_plain(cuda, dtype, k_tile, name):
 
 @pytest.mark.cuda
 def test_cuda_kernel_takes_tiles_out_of_block_order(cuda):
-    tw = tsm.CSR.from_scipy(MATRICES["random_5pct"], device=cuda).to_well(k_tile=4)
-    perm = torch.randperm(tw.n_tiles, generator=torch.Generator().manual_seed(0)).to(cuda)
-    shuffled = dataclasses.replace(tw, **{f: getattr(tw, f)[perm].contiguous()
-                                          for f in WELL_ARRAYS})
+    """Shuffled tiles and a tile past the last row block: the same plan,
+    the plain version's answer."""
+    tw = tsm.CSR.from_scipy(MATRICES["random_5pct"], device="cpu").to_well(k_tile=4)
+    shuffled = shuffled_with_stray(tw)
+    tw, shuffled = (dataclasses.replace(w, **{f: getattr(w, f).to(cuda) for f in WELL_ARRAYS})
+                    for w in (tw, shuffled))
     x = torch.randn(300, device=cuda)
-    assert rel_err(kw.well_spmv(shuffled, x).cpu(), kw.well_spmv_ref(tw, x).cpu()) < 1e-5
-    assert kw._plan(shuffled).vals is not shuffled.vals          # a copy in block order
-    assert kw._plan(tw).vals is tw.vals
+    y = kw.well_spmv(shuffled, x)
+    assert rel_err(y.cpu(), kw.well_spmv_ref(tw, x).cpu()) < 1e-5
+    assert rel_err(y.cpu(), kw.well_spmv_ref(shuffled, x).cpu()) < 1e-5
+    assert torch.equal(kw.well_spmv(tw, x), y)                 # one plan, one order
+    assert all(torch.equal(kw.well_spmv(shuffled, x), y) for _ in range(5))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_kernel_sums_many_segments_of_a_block(cuda, dtype, monkeypatch):
-    """One tile a segment: every block of several tiles takes the partials
-    and the last-segment sum."""
-    monkeypatch.setattr(kw, "SEG_SLOTS", 1)
+def test_cuda_kernel_sums_many_segments_of_a_block(cuda, dtype):
+    """One union column a segment: every group of several takes the
+    partials and the last-segment sum; the tickets reset, so reruns are
+    bitwise equal."""
     tw = tsm.CSR.from_scipy(MATRICES["dense_row"], device=cuda).to_well(k_tile=4).astype(dtype)
     x = torch.randn(256, device=cuda, dtype=dtype)
-    assert kw._plan(tw).n_multi > 0
+    plan = rg.plan_of(tw)
+    plan._spmv = rg.SpmvSplit(plan, seg_cols=1)
+    assert plan.spmv.n_multi > 0
     y = kw.well_spmv(tw, x)
     assert rel_err(y.cpu(), kw.well_spmv_ref(tw, x).cpu()) < TOL[dtype]
+    assert rel_err(y.cpu(), rg.spmv_walk(plan, x).cpu()) < TOL[dtype]
     assert all(torch.equal(kw.well_spmv(tw, x), y) for _ in range(5))   # reruns bitwise
 
 
