@@ -6,7 +6,8 @@ Four paths of the JAX package run here.  The banded path: SparseBuilder
 assembly → CSR → DIA → spmv / spmv_dot / spmv_chain → solvers.cg, on the
 2-D 5-point Poisson operator at 2048² = 4,194,304 rows (the reference
 benchmark's cg_f32_4M).  The FEM path: SparseBuilder assembly → CSR →
-StripELL → spmv → the preconditioned solvers, on the pwtk-class surrogate
+StripELL → spmv through the row-group SpMV kernel over its compact plan →
+the preconditioned solvers, on the pwtk-class surrogate
 ``matgen.fem_block_band()`` at its full 217,920 rows (the reference
 benchmark's fem config), made SPD by a dominant diagonal.  The circuit
 path: io.save_mtx → io.load_mtx → CSR → RouteStream → checkpoint.save_matrix
@@ -24,7 +25,8 @@ operator through io.load_mtx and checkpoint.load_matrix with no device
 named (the current card) → WELL → spmv through the row-group SpMV kernel
 over its plan →
 BiCGStab, GMRES(30) and rmatvec; the FEM operator → SlabStream → spmv
-through the SlabStream kernel → PCG(Jacobi); auto_format on the Poisson,
+through the row-group SpMV kernel over its plan (the plan of the StripELL
+and SlabPack of the same CSR) → PCG(Jacobi); auto_format on the Poisson,
 FEM and circuit operators.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
@@ -43,21 +45,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   7 times       kernel vs plain with CUDA events, and CG iterations/s
   8 dia dtypes  the DIA kernels on bf16, f16 and f32-matrix × f64-x operands
                 against their plain versions
-  9 strip       the StripELL kernel against its plain version, f32, f64 and
-                bf16 values: the JAX package's test shapes, rectangular
-                5000×900 and 300×9000, a stored zero, an empty matrix,
-                lidx_pack 1/2/4, group 1/16
- 10 fem path    assemble the FEM operator, freeze to StripELL, spmv (strip
-                kernel vs the CSR stream path, and vs its plain version at
-                full size), PCG(Jacobi), PCG(block-Jacobi 64), BiCGStab,
-                GMRES(30), Chebyshev, Jacobi, BiCGStab and GMRES on a
+  9 strip       the row-group SpMV through the StripELL wrapper against its
+                plain version and its plan's walk, f32, f64 and bf16 values:
+                the JAX package's test shapes, rectangular 5000×900 and
+                300×9000, a stored zero, an empty matrix, lidx_pack 1/2/4,
+                group 1/16
+ 10 fem path    assemble the FEM operator, freeze to StripELL, its row-group
+                plan (build seconds, MB, group size, lanes, segments), spmv
+                (the kernel vs the CSR stream path, and vs its plain version
+                and its plan's walk at full size), PCG(Jacobi),
+                PCG(block-Jacobi 64), BiCGStab, GMRES(30), Chebyshev,
+                Jacobi, BiCGStab and GMRES on a
                 nonsymmetric variant, f64 refinement over f32 PCG; the strip
                 launch counter must be > 0; true residuals in f64 on the host
  11 determinism strip spmv and the PCG(Jacobi) run rerun bitwise
- 12 times       strip kernel vs plain with CUDA events (per call, wrapper
-                included) and the kernel's device time (profiler), GB/s, and
-                PCG(Jacobi) iterations/s through the kernel and the plain
-                version
+ 12 times       strip SpMV vs plain with CUDA events (per call, wrapper
+                included) and the kernel's device time (profiler), GB/s of
+                the plan, x and y, and PCG(Jacobi) iterations/s through the
+                kernel and the plain version
  13 route       both route kernels against their plain halves (staging on
                 the regions' rows, y from the same staging, and the SpMV),
                 f32, f64 and bf16 values: the JAX package's test shapes,
@@ -115,10 +120,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 the plan's walk, reruns bitwise), empty groups; where x
                 holds inf or NaN, the SpMV of a WELL, a SlabELL and a
                 SlabPack against scipy's CSR SpMV
- 22 slab stream the SlabStream kernel against its plain version, f32, f64 and
-                bf16 values: mixed-degree 2000 at rb 256 and 1100 at rb 128,
-                rectangular 300×900 and 900×300, an empty matrix, a stored
-                zero
+ 22 slab stream the row-group SpMV through the SlabStream wrapper against its
+                plain version and its plan's walk, f32, f64 and bf16 values:
+                mixed-degree 2000 at rb 256 and 1100 at rb 128, rectangular
+                300×900 and 900×300, an empty matrix, a stored zero
  23 general     the general-matrix path at full size: the circuit operator
                 via save_mtx / load_mtx and a WELL checkpoint, both loaded
                 with no device named (they must land on the card), → WELL →
@@ -126,20 +131,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 spmv against the CSR stream path and the plan's walk,
                 method='pallas' and the reloaded WELL bitwise equal,
                 BiCGStab and GMRES(30) through the row-group SpMV, rmatvec against scipy's Aᵀy; the FEM SPD
-                operator of phase 10 → SlabStream → spmv against the strip
-                kernel and the CSR stream path, PCG(Jacobi), a SlabStream
+                operator of phase 10 → SlabStream → its plan → spmv against
+                the CSR stream path and the plan's walk, bitwise equal to
+                the spmv over the StripELL and the SlabPack of the same CSR
+                (one plan), PCG(Jacobi) over SlabStream and over StripELL
+                bitwise equal (iterate and iteration count), a SlabStream
                 checkpoint reloaded; auto_format picks DIA, StripELL and
                 RouteStream for the Poisson, FEM and circuit operators; each
                 kernel against its plain version at full size, f32 and f64;
                 the well_spmv and slab_stream_spmv launch counters must be
                 > 0; WELL spmv, SlabStream spmv, rmatvec and BiCGStab rerun
                 bitwise
- 24 times       each new kernel against its plain version (CUDA events per
-                call, wrapper included) and its device time (profiler), GB/s
-                of the plan, x and y and of spmv_traffic_bytes, BiCGStab
-                iterations/s through the row-group SpMV over WELL and PCG(Jacobi) iterations/s through the SlabStream
-                kernel (against the plain versions), the host seconds of
-                to_well and to_slab_stream
+ 24 times       the WELL and SlabStream SpMVs against their plain versions
+                (CUDA events per call, wrapper included) and their device
+                time (profiler), GB/s of the plan, x and y and of
+                spmv_traffic_bytes, BiCGStab iterations/s through the
+                row-group SpMV over WELL and PCG(Jacobi) iterations/s over
+                SlabStream (against the plain versions), the host seconds of
+                to_well, to_slab_stream, to_slab_pack and the plans
 Every kernel's timing phase also times one PyTorch library call that
 computes the same function on the same operator (torch.mv or
 torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot, the chain
@@ -156,13 +165,14 @@ Then a JSON line of the kernels and, last, the device JSON line.
 
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
 64 CG iterations through the kernels at 512² and 2048², of 64 PCG(Jacobi)
-iterations on the FEM StripELL and of 64 BiCGStab iterations on the circuit
-RouteStream, and prints the device time per iteration by kernel and the
+iterations on the FEM StripELL and SlabStream and of 64 BiCGStab iterations
+on the circuit RouteStream, and prints the device time per iteration by
+kernel (and of each path's SpMV kernel on a line of its own) and the
 device's busy share of wall time.
 
 Tolerances (relative to max|reference|): f32 y 1e-5 (the same sums,
-rounded with and without fused multiply-add, and for the strip and route
-kernels in another order: the route reduce sums each segment directly
+rounded with and without fused multiply-add, and for the row-group and
+route kernels in another order: the route reduce sums each segment directly
 where its plain version differences a prefix sum), f32 dot 1e-4 (another
 summation order), f64 1e-12.  bf16 and f16 operands are widened to f32 by
 both versions and held to the f32 tolerance.  Matrix products run in full
@@ -196,25 +206,23 @@ from sparsemat_tpu_torch.native import get_lib
 
 #: kernel → (its source, the TPU kernel it replaces)
 _DIA_CU = "sparsemat_tpu_torch/csrc/dia.cu"
+_SPMV_CU = "sparsemat_tpu_torch/csrc/spmv.cu"
 KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
            "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
-           "strip_spmv": ("sparsemat_tpu_torch/csrc/strip.cu",
-                          "sparsemat_tpu/kernels/strip.py:42"),
+           "strip_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/strip.py:42"),
            "route_gather": ("sparsemat_tpu_torch/csrc/route.cu",
                             "sparsemat_tpu/kernels/route.py:102"),
            "route_reduce": ("sparsemat_tpu_torch/csrc/route.cu",
                             "sparsemat_tpu/kernels/route.py:198"),
            "bsr_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                         "sparsemat_tpu/kernels/spmm.py:72"),
-           "slab_spmv": ("sparsemat_tpu_torch/csrc/spmv.cu",
+           "slab_spmv": (_SPMV_CU,
                          "sparsemat_tpu/kernels/spmv.py:165, sparsemat_tpu/kernels/spmv.py:271"),
            "slab_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                          "sparsemat_tpu/kernels/spmm.py:204, sparsemat_tpu/kernels/spmm.py:301"),
-           "well_spmv": ("sparsemat_tpu_torch/csrc/spmv.cu",
-                         "sparsemat_tpu/kernels/spmv.py:50"),
-           "slab_stream_spmv": ("sparsemat_tpu_torch/csrc/slab.cu",
-                                "sparsemat_tpu/kernels/spmv.py:320")}
+           "well_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
+           "slab_stream_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:320")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
@@ -429,9 +437,8 @@ def build_all():
         out = fn()
         return out, time.perf_counter() - t0
 
-    jobs = {"csrc/dia.cu": kd._kernels, "csrc/strip.cu": ks._kernels,
-            "csrc/route.cu": kr._kernels, "csrc/spmm.cu": krg._kernels,
-            "csrc/spmv.cu": krg._spmv_kernels, "csrc/slab.cu": ksl._kernels,
+    jobs = {"csrc/dia.cu": kd._kernels, "csrc/route.cu": kr._kernels,
+            "csrc/spmm.cu": krg._kernels, "csrc/spmv.cu": krg._spmv_kernels,
             "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
@@ -554,27 +561,31 @@ def device_us(fn, iters, key, launched):
 def profile_solvers(dev, iters=64):
     """Device time per solver iteration by kernel, and the device's busy
     share of the wall time with and without the profiler: CG on the 512²
-    and 2048² Poisson DIA, PCG(Jacobi) on the FEM StripELL, and BiCGStab on
-    the circuit RouteStream."""
+    and 2048² Poisson DIA, PCG(Jacobi) on the FEM StripELL and SlabStream
+    (one row-group plan), and BiCGStab on the circuit RouteStream.  Each
+    case's SpMV kernels (the names holding its key) get a line of their
+    own."""
     from torch.profiler import ProfilerActivity, profile
 
     cases = []
     for n in (512, 2048):
         csr, dia, _ = assemble_poisson(n, dev)
         b = tsm.spmv(csr, torch.randn(n * n, generator=gen(dev), device=dev))
-        cases.append((f"CG {n}²", lambda k, A=dia, b=b: solvers.cg(A, b, tol=0.0, maxiter=k)))
+        cases.append((f"CG {n}²", "dia_spmv",
+                      lambda k, A=dia, b=b: solvers.cg(A, b, tol=0.0, maxiter=k)))
     rows, cols, vals, n, _ = fem_triplets()
     csr, st, _ = assemble_strip(rows, cols, vals, n, dev)
     Mj = solvers.JacobiPreconditioner.from_matrix(csr)
     b = torch.randn(n, generator=gen(dev), device=dev)
-    cases.append(("PCG(Jacobi) fem StripELL",
-                  lambda k, b=b: solvers.cg(st, b, tol=0.0, maxiter=k, M=Mj)))
+    for label, A in (("StripELL", st), ("SlabStream", csr.to_slab_stream())):
+        cases.append((f"PCG(Jacobi) fem {label}", "rowgroup_spmv_kernel",
+                      lambda k, A=A, b=b: solvers.cg(A, b, tol=0.0, maxiter=k, M=Mj)))
     rs = tsm.CSR.from_scipy((matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr(),
                             device=dev).to_route()
     b = torch.randn(rs.shape[0], generator=gen(dev), device=dev)
-    cases.append(("BiCGStab circuit RouteStream",
+    cases.append(("BiCGStab circuit RouteStream", "route_",
                   lambda k, b=b: solvers.bicgstab(rs, b, tol=0.0, maxiter=k)))
-    for label, solve in cases:
+    for label, key, solve in cases:
         solve(4)                        # builds the launch plan outside the timing
         walls = []
         for _ in range(3):
@@ -593,9 +604,10 @@ def profile_solvers(dev, iters=64):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in kern) / iters
         check(dev_us > 0, "the profiler recorded no device time")
+        spmv_us = sum(e.self_device_time_total for e in kern if key in e.key) / iters
         say("profile", f"{label}: wall us/iter unprofiled {walls}, profiled {wall}; "
-            f"device us/iter {dev_us}; busy share of unprofiled wall "
-            f"{dev_us / min(walls)}, of profiled wall {dev_us / wall}")
+            f"device us/iter {dev_us}, of it {spmv_us} in the kernels named *{key}*; busy "
+            f"share of unprofiled wall {dev_us / min(walls)}, of profiled wall {dev_us / wall}")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:14]:
             print(f"   {e.self_device_time_total / iters:9.2f} us/iter  "
                   f"x{e.count / iters:5.2f}/iter  {e.key[:110]}", flush=True)
@@ -647,10 +659,13 @@ def fem_phases(dev, g, times, launches):
             y_ref = ks.strip_spmv_ref(s_dt, x_dt)
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("strip_spmv", y, y_ref, TOL[dt]["y"], f"strip {label} {dt}"))
+            compare(None, y, krg.spmv_walk(krg.plan_of(s_dt), x_dt), TOL[dt]["y"],
+                    f"strip {label} {dt} vs its plan's walk")
         worst[label] = max(errs)
     torch.cuda.synchronize()
-    say("9 strip", "kernel vs plain within tolerance (f32, f64, bf16 values); worst "
-        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+    say("9 strip", "kernel vs plain and vs its plan's walk within tolerance (f32, f64, "
+        "bf16 values); worst rel err vs plain per case: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
 
     # 10 -----------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -659,9 +674,16 @@ def fem_phases(dev, g, times, launches):
     ks.reset_launches()
     csr, st, (t_add, t_csr, t_strip) = assemble_strip(rows, cols, vals, n, dev)
     del rows, cols, vals
+    t0 = time.perf_counter()
+    plan = krg.plan_of(st)                  # what the first spmv would build
+    plan.spmv
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
     x = torch.randn(n, generator=g, device=dev)
     y_st = tsm.spmv(st, x)
     e_spmv = compare(None, y_st, tsm.spmv(csr, x), 1e-5, "fem spmv strip kernel vs CSR stream")
+    e_walk = compare(None, y_st, krg.spmv_walk(plan, x), 1e-5,
+                     "fem strip kernel vs its plan's walk")
     b = torch.randn(n, generator=g, device=dev)
     Mj = solvers.JacobiPreconditioner.from_matrix(csr)
     report = {}
@@ -719,14 +741,15 @@ def fem_phases(dev, g, times, launches):
     say("10 fem path", f"fem_block_band: {n} rows, {csr.n_non_zero_entries()} entries; "
         f"generate {t_gen:.3f} s, add_batch {t_add:.3f} s, to_csr {t_csr:.3f} s, "
         f"to_strip {t_strip:.3f} s; {len(st.parts)} parts, c_total {min(parts)}–{max(parts)}, "
-        f"nse {st.nse}, fill {st.fill_ratio():.3f}, kernel bytes {ks.strip_kernel_bytes(st)}; "
-        f"spmv vs CSR rel err {e_spmv:.2e}; kernel vs plain f32 {e_full:.2e} f64 "
-        f"{e_full64:.2e}; Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {SOLVE_RTOL} "
+        f"nse {st.nse}, fill {st.fill_ratio():.3f}; spmv vs CSR rel err {e_spmv:.2e}, vs the "
+        f"plan's walk {e_walk:.2e}; kernel vs plain f32 {e_full:.2e} f64 {e_full64:.2e}; "
+        f"Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {SOLVE_RTOL} "
         "(iterations, true relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
         + f"; f32 PCG at rtol 1e-12 stalls at {stall:.3e}, refine (f64 over f32 PCG) "
         f"reaches {refined:.3e} in {len(info_ref.residual_history)} outer / "
         f"{int(info_ref.iterations)} inner steps; strip launches {launches['strip_spmv']}")
+    say("10 fem path", plan_line("StripELL", plan, t_plan))
 
     # 11 -----------------------------------------------------------------------
     check(torch.equal(tsm.spmv(st, x), y_st), "strip spmv rerun differs")
@@ -742,20 +765,22 @@ def fem_phases(dev, g, times, launches):
     A_lib = torch_csr(csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
     del A_lib
-    b_ms, _ = record(times, "strip_spmv", k_ms, p_ms,
-                     need_bytes(csr.n_non_zero_entries(), csr.shape),
-                     2 * csr.n_non_zero_entries(), lib)
+    nnz = csr.n_non_zero_entries()
+    need_v, of = spmv_need(plan, csr)
+    b_ms, _ = record(times, "strip_spmv", k_ms, p_ms, need_v, 2 * nnz, lib)
+    times["strip_spmv"]["bound_counts"] = of
     per = note_steps(times, "strip_spmv", per_step(
         lambda: ks.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32)[
             "strip_spmv"], "PCG(Jacobi) iteration, FEM StripELL")
-    kb = ks.strip_kernel_bytes(st) / 1e6
-    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "strip_spmv_kernel",
+    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "rowgroup_spmv_kernel",
                      lambda: ks.LAUNCHES["strip_spmv"]) / 1e3
-    say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call ({kb / k_ms:.1f} "
-        f"GB/s of {kb:.1f} MB kernel bytes; {csr.n_non_zero_entries() / k_ms / 1e6:.3f} "
-        f"Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device ({kb / d_ms:.1f} GB/s, "
-        f"profiler); plain {p_ms:.4f} ms ({kb / p_ms:.1f} GB/s) runs {p_runs}; bound "
-        f"{b_ms:.4f} ms; torch.mv on the CSR {lib} ms; launches per PCG iteration {per}")
+    mp = (plan.nbytes + sum(csr.shape) * 4) / 1e6          # the plan, x and y once each
+    say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call "
+        f"({nnz / k_ms / 1e6:.3f} Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device "
+        f"(profiler): {mp / d_ms:.1f} GB/s of the plan, x and y ({mp:.1f} MB); plain "
+        f"{p_ms:.4f} ms runs {p_runs}; bound {b_ms:.4f} ms (bytes of the {of}: {need_v} "
+        f"against the CSR's {need_bytes(nnz, csr.shape)}); torch.mv on the CSR {lib} ms; "
+        f"launches per PCG iteration {per}")
     plain = lambda v: ks.strip_spmv_ref(st, v)  # noqa: E731
     runs = [cg_iters_per_s(plain, b, 64, Mj), cg_iters_per_s(st, b, 256, Mj),
             cg_iters_per_s(st, b, 256, Mj), cg_iters_per_s(plain, b, 64, Mj)]
@@ -1435,9 +1460,9 @@ def well_cases():
 
 def check_non_finite_x(dev):
     """Where x holds inf or NaN, the row-group SpMV gives scipy's CSR SpMV
-    answer through each of its wrappers: a stored zero meets inf (0 · inf
-    = NaN in both), and a column that only padding slots point at holds
-    NaN (no NaN from it, where the plain versions give one)."""
+    answer through each of its five wrappers: a stored zero meets inf
+    (0 · inf = NaN in both), and a column that only padding slots point at
+    holds NaN (no NaN from it, where the plain versions give one)."""
     m = sprinkled(300, 520, 0.03, 11, zeros=(0,)).tocoo()
     keep = m.col != 128                     # under padding slots
     m = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
@@ -1453,7 +1478,10 @@ def check_non_finite_x(dev):
     for label, mat, fn, ref in (("well", csr.to_well(), kw.well_spmv, kw.well_spmv_ref),
                                 ("slab", csr.to_slab(rb=128), ksl.slab_spmv, ksl.slab_spmv_ref),
                                 ("pack", csr.to_slab_pack(), ksl.slab_pack_spmv,
-                                 ksl.slab_pack_spmv_ref)):
+                                 ksl.slab_pack_spmv_ref),
+                                ("strip", csr.to_strip(), ks.strip_spmv, ks.strip_spmv_ref),
+                                ("slab stream", csr.to_slab_stream(rb=128), ksl.slab_stream_spmv,
+                                 ksl.slab_stream_spmv_ref)):
         got = fn(mat, xt).cpu().numpy()
         check(np.array_equal(np.isnan(got), np.isnan(want)),
               f"non-finite x through {label}: NaN where scipy has none, or the reverse")
@@ -1533,10 +1561,13 @@ def general_phases(dev, g, times, launches, poisson_csr):
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("slab_stream_spmv", y, y_ref, TOL[dt]["y"],
                                 f"slab stream {label} {dt}"))
+            compare(None, y, krg.spmv_walk(krg.plan_of(s_dt), x_dt), TOL[dt]["y"],
+                    f"slab stream {label} {dt} vs its plan's walk")
         worst[f"{label} ({st.n_chunks} chunks)"] = max(errs)
     torch.cuda.synchronize()
-    say("22 slab stream", "kernel vs plain within tolerance (f32, f64, bf16 values); worst "
-        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+    say("22 slab stream", "kernel vs plain and vs its plan's walk within tolerance (f32, "
+        "f64, bf16 values); worst rel err vs plain per case: "
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
 
     # 23 -----------------------------------------------------------------------
     host = {}
@@ -1596,15 +1627,37 @@ def general_phases(dev, g, times, launches, poisson_csr):
     st = fcsr.to_slab_stream()
     torch.cuda.synchronize()
     host["to_slab_stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    splan = krg.plan_of(st)
+    splan.spmv
+    torch.cuda.synchronize()
+    host["SlabStream plan"] = time.perf_counter() - t0
+    fst = fcsr.to_strip()
+    t0 = time.perf_counter()
+    fpk = fcsr.to_slab_pack()
+    torch.cuda.synchronize()
+    host["to_slab_pack"] = time.perf_counter() - t0
+    for label, other in (("StripELL", fst), ("SlabPack", fpk)):
+        oplan = krg.plan_of(other)
+        check(oplan.group == splan.group and all(
+            torch.equal(getattr(oplan, f), getattr(splan, f))
+            for f in ("grp_ptr", "cols", "mask", "vals")),
+              f"the FEM SlabStream's plan and its {label}'s differ")
     xf = torch.randn(nf, generator=g, device=dev)
     yf = tsm.spmv(st, xf)
-    e_strip = compare(None, yf, tsm.spmv(fcsr.to_strip(), xf), 1e-5,
-                      "fem spmv SlabStream kernel vs strip kernel")
+    check(torch.equal(tsm.spmv(fst, xf), yf), "FEM spmv over StripELL and SlabStream differ")
+    check(torch.equal(tsm.spmv(fpk, xf), yf), "FEM spmv over SlabPack and SlabStream differ")
     e_fcsr = compare(None, yf, tsm.spmv(fcsr, xf), 1e-5, "fem spmv SlabStream kernel vs CSR")
+    e_swalk = compare(None, yf, krg.spmv_walk(splan, xf), 1e-5,
+                      "fem SlabStream kernel vs its plan's walk")
     bf = torch.randn(nf, generator=g, device=dev)
     Mj = solvers.JacobiPreconditioner.from_matrix(fcsr)
     x_pcg, info_pcg = solvers.cg(st, bf, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mj)
     solved("PCG(Jacobi) SlabStream", x_pcg, info_pcg, fcsr, bf)
+    x_pcg_s, info_pcg_s = solvers.cg(fst, bf, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000, M=Mj)
+    check(torch.equal(x_pcg_s, x_pcg) and int(info_pcg_s.iterations) == int(info_pcg.iterations),
+          "PCG(Jacobi) over StripELL and over SlabStream differ")
+    del fpk
     with tempfile.TemporaryDirectory() as td:
         npz = os.path.join(td, "fem_slab_stream.npz")
         checkpoint.save_matrix(npz, st)
@@ -1642,8 +1695,11 @@ def general_phases(dev, g, times, launches, poisson_csr):
         f"method='pallas' and the reloaded WELL bitwise equal; rmatvec vs scipy {e_rmv:.2e}. "
         f"FEM (phase 10's SPD operator): {nf} rows, {fcsr.n_non_zero_entries()} entries; "
         f"SlabStream: {st.n_chunks} chunks, nse {st.nse}, fill {st.fill_ratio():.4f}, "
-        f"spmv_traffic_bytes {st.spmv_traffic_bytes()}; spmv vs strip {e_strip:.2e}, vs CSR "
-        f"{e_fcsr:.2e}; reloaded SlabStream bitwise equal. Kernels vs plain at full size: "
+        f"spmv_traffic_bytes {st.spmv_traffic_bytes()}; its plan is the StripELL's and the "
+        f"SlabPack's, array for array; spmv over SlabStream, StripELL and SlabPack bitwise "
+        f"equal, vs CSR {e_fcsr:.2e}, vs the plan's walk {e_swalk:.2e}; PCG(Jacobi) over "
+        f"SlabStream and StripELL bitwise equal ({int(info_pcg.iterations)} iterations "
+        f"each); reloaded SlabStream bitwise equal. Kernels vs plain at full size: "
         + "; ".join(f"{k} {v:.2e}" for k, v in full.items())
         + f". Solves to rtol {SOLVE_RTOL} (iterations, true relative residual f64): "
         + "; ".join(f"{k} {it} {rr:.3e}" for k, (it, rr) in report.items())
@@ -1651,6 +1707,7 @@ def general_phases(dev, g, times, launches, poisson_csr):
         + f"; launches {({k: launches[k] for k in ('well_spmv', 'slab_stream_spmv')})}")
 
     say("23 general path", plan_line("WELL", wplan, host["WELL plan"]))
+    say("23 general path", plan_line("FEM SlabStream", splan, host["SlabStream plan"]))
     check(torch.equal(tsm.spmv(well, x), y), "WELL spmv rerun differs")
     check(torch.equal(tsm.spmv(st, xf), yf), "SlabStream spmv rerun differs")
     check(torch.equal(tsm.rmatvec(well, yt), r), "rmatvec rerun differs")
@@ -1662,32 +1719,30 @@ def general_phases(dev, g, times, launches, poisson_csr):
         "bitwise equal")
 
     # 24 -----------------------------------------------------------------------
-    for name, mat, xv, A_csr, kern, plain, nnz_ in (
-            ("well_spmv", well, x, csr, kw.well_spmv, kw.well_spmv_ref,
-             csr.n_non_zero_entries()),
-            ("slab_stream_spmv", st, xf, fcsr, ksl.slab_stream_spmv, ksl.slab_stream_spmv_ref,
-             fcsr.n_non_zero_entries())):
+    for name, mat, plan, xv, A_csr, kern, plain in (
+            ("well_spmv", well, wplan, x, csr, kw.well_spmv, kw.well_spmv_ref),
+            ("slab_stream_spmv", st, splan, xf, fcsr, ksl.slab_stream_spmv,
+             ksl.slab_stream_spmv_ref)):
+        nnz_ = A_csr.n_non_zero_entries()
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(mat, xv), lambda: plain(mat, xv), 20)
-        d_ms = device_us(lambda: kern(mat, xv), 20,
-                         {"well_spmv": "rowgroup_spmv_kernel"}.get(name, f"{name}_kernel"),
+        d_ms = device_us(lambda: kern(mat, xv), 20, "rowgroup_spmv_kernel",
                          lambda: {**kw.LAUNCHES, **ksl.LAUNCHES}[name]) / 1e3
         A_lib = torch_csr(A_csr)
         lib = library_ms(lambda: torch.mv(A_lib, xv), 20)
         del A_lib
         mb = mat.spmv_traffic_bytes() / 1e6
-        need, of = (spmv_need(wplan, A_csr) if name == "well_spmv"
-                    else (need_bytes(nnz_, A_csr.shape), "CSR"))
+        mp = (plan.nbytes + sum(A_csr.shape) * 4) / 1e6    # the plan, x and y once each
+        need, of = spmv_need(plan, A_csr)
         b_ms, by = record(times, name, k_ms, p_ms, need, 2 * nnz_, lib)
         times[name]["bound_counts"] = of
         c_ms = cuda_ms(lambda: tsm.spmv(A_csr, xv), 20)
-        plan_gbs = (f"{wplan.nbytes / 1e6 / d_ms:.1f} GB/s of the {wplan.nbytes / 1e6:.1f} MB "
-                    f"plan, " if name == "well_spmv" else "")
-        say("24 times", f"{name} f32: kernel {k_ms:.4f} ms per call ({mb / k_ms:.1f} GB/s of "
-            f"{mb:.1f} MB spmv_traffic_bytes; {nnz_ / k_ms / 1e6:.3f} Gnnz/s) runs {k_runs}, of "
-            f"it {d_ms:.4f} ms on the device ({plan_gbs}{mb / d_ms:.1f} GB/s of the layout, "
-            f"profiler); plain {p_ms:.4f} ms runs {p_runs}; bound {b_ms:.4f} ms ({by}, of the "
-            f"{of}'s {need} bytes; the CSR's {need_bytes(nnz_, A_csr.shape)}); torch.mv on the "
-            f"CSR {lib} ms; the port's CSR stream path {c_ms:.4f} ms")
+        say("24 times", f"{name} f32: kernel {k_ms:.4f} ms per call ({nnz_ / k_ms / 1e6:.3f} "
+            f"Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device (profiler): "
+            f"{mp / d_ms:.1f} GB/s of the plan, x and y ({mp:.1f} MB), {mb / d_ms:.1f} GB/s of "
+            f"the layout's {mb:.1f} MB spmv_traffic_bytes; plain {p_ms:.4f} ms runs {p_runs}; "
+            f"bound {b_ms:.4f} ms ({by}, of the {of}'s {need} bytes; the CSR's "
+            f"{need_bytes(nnz_, A_csr.shape)}); torch.mv on the CSR {lib} ms; the port's CSR "
+            f"stream path {c_ms:.4f} ms")
     plain_w = lambda v: kw.well_spmv_ref(well, v)  # noqa: E731
     runs = [bicgstab_iters_per_s(plain_w, b, 32), bicgstab_iters_per_s(well, b, 128),
             bicgstab_iters_per_s(well, b, 128), bicgstab_iters_per_s(plain_w, b, 32)]

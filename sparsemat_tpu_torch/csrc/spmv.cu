@@ -1,13 +1,18 @@
 // Row-group SpMV kernel for Hopper (sm_90a): y = A @ x over the compact
-// launch plan of a WELL, SlabELL or SlabPack (kernels/_rowgroup.py, the
-// plan the row-group SpMM of csrc/spmm.cu walks too), bound to Python with
-// ctypes through the plain C functions at the end of this file.
+// launch plan of a WELL, SlabELL, SlabPack, StripELL or SlabStream
+// (kernels/_rowgroup.py, the plan the row-group SpMM of csrc/spmm.cu walks
+// too), bound to Python with ctypes through the plain C functions at the end
+// of this file.
 //
 // Replaces sparsemat_tpu/kernels/spmv.py: well_spmv_pallas (:50, one grid
 // step per (8 x K) WELL tile over a 128-column x window), slab_spmv_pallas
-// (:165, the SlabELL (C, rb) slot tiles over resident x windows) and
+// (:165, the SlabELL (C, rb) slot tiles over resident x windows),
 // slab_pack_spmv_pallas (:271, one call per class part, a static block
-// permutation, the overflow pack's product added on top).
+// permutation, the overflow pack's product added on top) and
+// slab_stream_spmv_pallas (:320, the (8 x rb) chunk stream summed into each
+// chunk's row block); and sparsemat_tpu/kernels/strip.py:
+// strip_part_spmv_pallas (:42, one call per class part over xT tiles, then
+// the static block permutation of _combine).
 //
 // The plan holds exactly the matrix's entries: no padding slots, no dummy
 // tiles, every part and overflow level in one.  Rows are cut into groups of
@@ -25,8 +30,9 @@
 // column is its row's entry) and G values, and gathers x once for all G
 // rows; x (under 1 MB on the FEM and circuit operators) stays in L2.  That
 // is 63.2 MB on the 217,920-row FEM operator (G = 3) and about 9 MB on the
-// 170,998-row circuit operator (G = 1), against 881-1,202 MB and 526 MB of
-// the padded SlabPack/SlabELL and WELL layouts the TPU kernels stream.
+// 170,998-row circuit operator (G = 1), against 289-1,202 MB (StripELL,
+// SlabStream, SlabPack, SlabELL) and 526 MB (WELL) of the padded layouts
+// the TPU kernels stream.
 // What stands in the way is the spread of row lengths: the circuit
 // operator's heaviest rows hold thousands of entries beside a mean of 5.6.
 //

@@ -26,7 +26,9 @@ with each chunk's window and row block.
 
 The layout is the JAX package's, array for array and bit for bit (the
 freeze below is the same host numpy program, uploaded once at the end, its
-host arrays cached).  Only the kernels are redesigned (``csrc/slab.cu``).
+host arrays cached).  Only the kernels are redesigned: the SpMV and SpMM
+of all three walk the matrix's compact row-group plan, built once from
+``to_coo`` (``kernels/_rowgroup.py``).
 """
 
 from __future__ import annotations
@@ -472,7 +474,8 @@ class SlabStream(SparseFormat):
     int32 stored entries per (chunk, row): sublane < count marks a stored
     entry.  The nnz = 0 layout is one zero chunk."""
 
-    _spmv_read_fields = ("vals", "lidx", "win_id", "blk_id")  # cnt8: round trips only
+    # the JAX package's count; cnt8 is read by to_coo only (round trips, plan builds)
+    _spmv_read_fields = ("vals", "lidx", "win_id", "blk_id")
 
     vals: torch.Tensor
     lidx: torch.Tensor

@@ -14,10 +14,12 @@ tile base; groups are split into class parts by strip count.
 The layout is the JAX package's, array for array and bit for bit (the
 freeze below is the same host numpy program), even where the TPU shaped it:
 later format conversions and checkpoints compare against it.  Only the
-kernel is redesigned (``csrc/strip.cu``): a GPU thread gathers x directly,
-so the xᵀ tiles the TPU kernel assembles (``build_xt_tiles``) are kept here
-for parity only.  The freeze runs on the host and uploads once; the host
-arrays stay cached (``host()``), as ``CSR.from_host_coo`` does.
+SpMV is redesigned: on the card it walks the matrix's compact row-group
+plan, built once from ``to_coo`` (``kernels/_rowgroup.py``,
+``csrc/spmv.cu``), and gathers x directly, so the xᵀ tiles the TPU kernel
+assembles (``build_xt_tiles``) are kept here for parity only.  The freeze
+runs on the host and uploads once; the host arrays stay cached
+(``host()``), as ``CSR.from_host_coo`` does.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ class StripPart(SparseFormat):
     128) int32 packed col-in-window; ``wrel`` (nb, cg, 128) int32 window per
     strip relative to the group's tile base (cg = ceil(c_total/128), tail
     0); ``wtile`` (nb/g4,) int32 tile id per group; ``occ`` (nb, c_total,
-    128) bool stored-entry mask (tells stored zeros from padding; the SpMV
-    does not read it); ``block_ids`` the original block of each of the nb
-    blocks (ids ≥ the number of row blocks are the trailing group pad).
+    128) bool stored-entry mask (tells stored zeros from padding; read once,
+    by ``to_coo``, where the row-group plan is built); ``block_ids`` the
+    original block of each of the nb blocks (ids ≥ the number of row blocks
+    are the trailing group pad).
     """
 
     vals: torch.Tensor
@@ -318,8 +321,8 @@ class StripELL(SparseFormat):
     def spmv_traffic_bytes(self) -> int:
         """The JAX package's layout bytes per SpMV on a TPU: every array its
         kernel reads once (vals, lidx, wrel, wtile), the xᵀ tile build
-        ((1 + 2·128/32)·x) and y once.  Kept for parity; the CUDA kernel
-        builds no tiles (``kernels.strip.strip_kernel_bytes``)."""
+        ((1 + 2·128/32)·x) and y once.  Kept for parity; the CUDA SpMV
+        reads the matrix's row-group plan instead and builds no tiles."""
         total = 0
         for p in self.parts:
             total += p.vals.numel() * p.vals.element_size()

@@ -1,16 +1,18 @@
 """The row-group plan shared by the SpMV and SpMM of BSR, WELL, SlabELL
-and SlabPack: a compact launch plan built once per matrix (``plan_of``),
-the bindings of the two CUDA kernels that walk it (``csrc/spmm.cu`` and
-``csrc/spmv.cu``, see the notes there for what they replace and what
-bounds them), and plain walks of the plan in each kernel's order.
+and SlabPack, and by the SpMV of StripELL and SlabStream: a compact launch
+plan built once per matrix (``plan_of``), the bindings of the two CUDA
+kernels that walk it (``csrc/spmm.cu`` and ``csrc/spmv.cu``, see the notes
+there for what they replace and what bounds them), and plain walks of the
+plan in each kernel's order.
 
 The plan holds exactly the entries the format's own ``to_coo`` counts
 (stored zeros stay, zero blocks and padding slots go), whose row and
-column lie inside the matrix.  Rows are cut into groups of G consecutive
-rows (G ≤ 8, the same for the whole matrix); each group keeps one sorted
-list of the union of its rows' columns, and each row one value per union
-column (zero where it has no entry) beside a bit that says whether it has
-one.  G is chosen per matrix, with no argument, to minimise the bytes one
+column lie inside the matrix: a StripELL's strips and a SlabStream's
+chunks come down to the same plan as any other freeze of the same CSR.
+Rows are cut into groups of G consecutive rows (G ≤ 8, the same for the
+whole matrix); each group keeps one sorted list of the union of its rows'
+columns, and each row one value per union column (zero where it has no
+entry) beside a bit that says whether it has one.  G is chosen per matrix, with no argument, to minimise the bytes one
 column tile of the product reads: the plan's columns, masks and values,
 and one 512-byte B slice per union column.  On a dof-blocked FEM operator
 the dof rows of a node share their columns and G comes out at the dof
@@ -188,13 +190,14 @@ class SpmvSplit:
 
 def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape) -> Plan:
     """The plan of the entries (rows, cols, vals), in any order, on their
-    device; entries outside the matrix are dropped."""
+    device; entries outside the matrix are dropped (a padding slot of
+    ``to_coo`` is one) before the indices are widened to int64, so a
+    padded layout's slots never take 16 bytes each."""
     n_rows, n_cols = (int(s) for s in shape)
     dev = vals.device
     vdt = accum_dtype(vals.dtype)
-    rows, cols = rows.long(), cols.long()
     keep = (rows >= 0) & (rows < n_rows) & (cols >= 0) & (cols < n_cols)
-    rows, cols, vals = rows[keep], cols[keep], vals[keep].to(vdt)
+    rows, cols, vals = rows[keep].long(), cols[keep].long(), vals[keep].to(vdt)
     nnz = int(rows.numel())
     # (row, col) order, entries at one (row, col) kept in input order and
     # told apart by their rank among them
@@ -256,11 +259,12 @@ def bsr_entries(bsr: BSR):
 
 
 def plan_of(mat, check=None) -> Plan:
-    """The plan of a BSR, WELL, SlabELL or SlabPack (every part and every
-    overflow level in one), shared by its SpMV and SpMM: built on the
-    matrix's device at first use (a BSR's entries from its blocks, the
-    others' from ``to_coo``), after ``check(mat)`` where one is given, and
-    cached on it (a frozen matrix's layout and values never change)."""
+    """The plan of a BSR, WELL, SlabELL, SlabPack (every part and every
+    overflow level in one), StripELL (every class part) or SlabStream,
+    shared by its SpMV and SpMM: built on the matrix's device at first use
+    (a BSR's entries from its blocks, the others' from ``to_coo``), after
+    ``check(mat)`` where one is given, and cached on it (a frozen matrix's
+    layout and values never change)."""
     plan = mat.__dict__.get("_rowgroup_plan")
     if plan is None:
         if check is not None:

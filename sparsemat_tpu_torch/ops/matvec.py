@@ -2,12 +2,14 @@
 ``sparsemat_tpu/ops/matvec.py``).
 
 Dispatch by format, in the JAX package's order: DIA goes to the DIA kernels
-(``kernels/dia.py``), StripELL to the strip kernel (``kernels/strip.py``),
-RouteStream to the two route kernels (``kernels/route.py``), SlabStream,
-SlabPack and SlabELL to the slab kernels (``kernels/slab.py``), WELL (and
-any matrix under ``method='pallas'``) to the WELL kernel (``kernels/well.py``)
-and, for SpMM, BSR to the BSR kernel (``kernels/spmm.py``); each launches on
-CUDA tensors and takes its plain version on CPU tensors.  GELL takes one
+(``kernels/dia.py``), RouteStream to the two route kernels
+(``kernels/route.py``); StripELL (``kernels/strip.py``), SlabStream, SlabPack
+and SlabELL (``kernels/slab.py``) and WELL (and any matrix under
+``method='pallas'``, ``kernels/well.py``) to the row-group SpMV over the
+matrix's compact plan (``kernels/_rowgroup.py``), and, for SpMM, BSR
+(``kernels/spmm.py``), SlabPack and SlabELL to the row-group SpMM over the
+same plan; each wrapper launches on CUDA tensors and takes its plain
+version on CPU tensors.  GELL takes one
 ELL gather sweep per level, joined by gathers through its inverse row maps;
 ELL takes dense gather sweeps; CSR and COO (and SELL, through COO) take the
 stream path: gather by column, multiply, and reduce each row's segment in

@@ -1,16 +1,20 @@
 """The row-group SpMV over the plan (``kernels/_rowgroup.py``: ``SpmvSplit``
 and ``spmv_walk``, the order of ``csrc/spmv.cu`` in plain torch) against
 the JAX package on the same seeded inputs: the walk of the plan of every
-WELL, SlabELL and SlabPack of the matrices of test_torch_well.py,
-test_torch_slab.py and test_torch_rowgroup.py equals ``well_spmv_xla``,
-``slab_spmv_xla``, ``slab_pack_spmv_xla``, the interpret-mode
-``well_spmv_pallas`` and ``slab_pack_spmv_pallas``, and scipy; so does
-the walk forced through one-column segments (every group of several
-columns takes the partials path) and at each sub-warp width; the segment
-table covers each group once; a heavy row is cut into many segments; one
-plan serves a matrix's SpMV and SpMM; and a padding slot reads no x, so an
-x holding inf or NaN gives a CSR SpMV's answer.  On a CUDA card, the
-kernel against the walk and scipy, and SlabELL and SlabPack bitwise equal.
+WELL, SlabELL, SlabPack, StripELL and SlabStream of the matrices of
+test_torch_well.py, test_torch_slab.py, test_torch_strip.py,
+test_torch_slab_stream.py and test_torch_rowgroup.py equals
+``well_spmv_xla``, ``slab_spmv_xla``, ``slab_pack_spmv_xla``,
+``strip_spmv_xla``, ``slab_stream_spmv_xla``, the interpret-mode
+``well_spmv_pallas``, ``slab_pack_spmv_pallas``, ``strip_spmv_pallas`` and
+``slab_stream_spmv_pallas``, and scipy; so does the walk forced through
+one-column segments (every group of several columns takes the partials
+path) and at each sub-warp width; the segment table covers each group
+once; a heavy row is cut into many segments; one plan serves a matrix's
+SpMV and SpMM, and the five freezes of one CSR have one plan; and a
+padding slot reads no x, so an x holding inf or NaN gives a CSR SpMV's
+answer.  On a CUDA card, each of the five wrappers' kernel against the
+walk and scipy, and SlabELL and SlabPack bitwise equal.
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (another summation
 order) and 1e-12 in f64.  f32 operands are passed explicitly, because
@@ -29,11 +33,15 @@ import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import matgen
 from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import slab as ksl
+from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.kernels import well as kw
 from test_torch_rowgroup import MATRICES as RG_MATRICES
 from test_torch_rowgroup import fem
 from test_torch_slab import MATRICES as SLAB_MATRICES
 from test_torch_slab import PACKS
+from test_torch_slab_stream import MATRICES as STREAM_MATRICES
+from test_torch_strip import LAYOUTS as STRIP_LAYOUTS
+from test_torch_strip import MATRICES as STRIP_MATRICES
 from test_torch_well import MATRICES as WELL_MATRICES
 
 F32, F64 = (np.float32, 1e-5), (np.float64, 1e-12)
@@ -63,6 +71,13 @@ def freezes(kind, m, arg):
         return tc.to_well(k_tile=arg), jc.to_well(k_tile=arg), jkv.well_spmv_xla
     if kind == "slab":
         return tc.to_slab(rb=arg), jc.to_slab(rb=arg), jkv.slab_spmv_xla
+    if kind == "strip":
+        from sparsemat_tpu.kernels import strip as jks
+
+        kw_ = STRIP_LAYOUTS[arg]
+        return tc.to_strip(**kw_), jc.to_strip(**kw_), jks.strip_spmv_xla
+    if kind == "stream":
+        return tc.to_slab_stream(rb=arg), jc.to_slab_stream(rb=arg), jkv.slab_stream_spmv_xla
     rb, nc, spill = PACKS[arg]
     return (tsm.SlabPack.from_csr(tc, rb=rb, n_classes=nc, spill_frac=spill),
             jsm.SlabPack.from_csr(jc, rb=rb, n_classes=nc, spill_frac=spill),
@@ -133,6 +148,39 @@ def test_walk_matches_slab_pack_pallas_interpret():
 @pytest.mark.parametrize("name", list(RG_MATRICES))
 def test_walk_over_the_rowgroup_matrices(name, kind, arg):
     check_walk(kind, RG_MATRICES[name](), arg)
+
+
+@pytest.mark.parametrize("kind,arg", [("strip", "default"), ("stream", 128)])
+@pytest.mark.parametrize("name", list(RG_MATRICES))
+def test_walk_matches_strip_and_slab_stream_xla_oracles(name, kind, arg):
+    check_walk(kind, RG_MATRICES[name](), arg)
+
+
+@pytest.mark.parametrize("name,layout", [("rect_300x9000", "pack2_group1")])
+def test_walk_matches_strip_pallas_interpret(name, layout):
+    """Class parts, packed lidx and the block permutation in one plan."""
+    jsm, jnp, _ = jax_ref()
+    from sparsemat_tpu.kernels import strip as jks
+
+    m = STRIP_MATRICES[name]()
+    kw_ = STRIP_LAYOUTS[layout]
+    x = np.random.default_rng(3).standard_normal(m.shape[1]).astype(np.float32)
+    want = jks.strip_spmv_pallas(jsm.CSR.from_scipy(m).to_strip(**kw_), jnp.asarray(x),
+                                 interpret=True)
+    plan = rg.plan_of(tsm.CSR.from_scipy(m).to_strip(**kw_))
+    assert rel_err(rg.spmv_walk(plan, torch.from_numpy(x)), want) < 1e-5
+
+
+@pytest.mark.parametrize("name,rb", [("mixed_1100", 128)])
+def test_walk_matches_slab_stream_pallas_interpret(name, rb):
+    """Chunks of one row block summed into it, chunks past n_rows dropped."""
+    jsm, jnp, jkv = jax_ref()
+    m = STREAM_MATRICES[name]()
+    x = np.random.default_rng(23).standard_normal(m.shape[1]).astype(np.float32)
+    want = jkv.slab_stream_spmv_pallas(jsm.CSR.from_scipy(m).to_slab_stream(rb=rb),
+                                       jnp.asarray(x), interpret=True)
+    plan = rg.plan_of(tsm.CSR.from_scipy(m).to_slab_stream(rb=rb))
+    assert rel_err(rg.spmv_walk(plan, torch.from_numpy(x)), want) < 1e-5
 
 
 # -- the work split ----------------------------------------------------------------------
@@ -257,6 +305,21 @@ def test_slab_and_pack_of_one_csr_have_one_plan():
     assert torch.equal(rg.spmv_walk(a, x), rg.spmv_walk(b, x))
 
 
+@pytest.mark.parametrize("name", list(RG_MATRICES))
+def test_five_freezes_of_one_csr_have_one_plan(name):
+    """StripELL, SlabStream, SlabPack, SlabELL and WELL of one CSR: one plan,
+    array for array, so their SpMVs on the card are one launch of one
+    kernel over the same arrays."""
+    c = tsm.CSR.from_scipy(RG_MATRICES[name]())
+    plans = [rg.plan_of(mat) for mat in (c.to_strip(), c.to_slab_stream(), c.to_slab_pack(),
+                                         c.to_slab(), c.to_well())]
+    for plan in plans[1:]:
+        assert (plan.group, plan.shape, plan.nnz) == (plans[0].group, plans[0].shape,
+                                                      plans[0].nnz)
+        for f in ("grp_ptr", "cols", "mask", "vals"):
+            assert torch.equal(getattr(plan, f), getattr(plans[0], f)), f
+
+
 # -- padding reads no x ------------------------------------------------------------------
 
 def test_walk_gives_a_csr_answer_on_non_finite_x():
@@ -276,7 +339,8 @@ def test_walk_gives_a_csr_answer_on_non_finite_x():
     c = tsm.CSR.from_scipy(m)
     xt = torch.from_numpy(x)
     for mat, ref in ((c.to_well(), kw.well_spmv_ref), (c.to_slab(rb=128), ksl.slab_spmv_ref),
-                     (c.to_slab_pack(), ksl.slab_pack_spmv_ref)):
+                     (c.to_slab_pack(), ksl.slab_pack_spmv_ref), (c.to_strip(), ks.strip_spmv_ref),
+                     (c.to_slab_stream(rb=128), ksl.slab_stream_spmv_ref)):
         got = rg.spmv_walk(rg.plan_of(mat), xt).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
         assert np.isnan(ref(mat, xt).numpy()).sum() > 1
@@ -293,7 +357,10 @@ def cuda():
 
 WRAPPERS = {"well": (lambda c: c.to_well(), kw.well_spmv, kw.LAUNCHES, "well_spmv"),
             "slab": (lambda c: c.to_slab(rb=128), ksl.slab_spmv, ksl.LAUNCHES, "slab_spmv"),
-            "pack": (lambda c: c.to_slab_pack(), ksl.slab_pack_spmv, ksl.LAUNCHES, "slab_spmv")}
+            "pack": (lambda c: c.to_slab_pack(), ksl.slab_pack_spmv, ksl.LAUNCHES, "slab_spmv"),
+            "strip": (lambda c: c.to_strip(), ks.strip_spmv, ks.LAUNCHES, "strip_spmv"),
+            "stream": (lambda c: c.to_slab_stream(rb=128), ksl.slab_stream_spmv, ksl.LAUNCHES,
+                       "slab_stream_spmv")}
 
 
 @pytest.mark.cuda

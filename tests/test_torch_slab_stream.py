@@ -3,9 +3,10 @@ freeze gives the same arrays bit for bit (rb 128 and 256, a rectangular
 matrix, stored zeros and the one-zero-chunk layout of nnz = 0 included);
 the plain SpMV matches the XLA oracle and the Pallas kernel in interpret
 mode (with the JAX package's per-call chunk splits forced); round trips
-keep stored zeros; the CUDA kernel's walk over each row block's chunk range,
-replayed in numpy, gives A @ x for chunks in and out of block order; and
-(on a CUDA card) the kernel matches the plain version.
+keep stored zeros; the CUDA kernel's walk (the row-group plan built from
+``to_coo``, walked in the kernel's order) gives A @ x for chunks in and out
+of block order, and chunks in any order give one plan; and (on a CUDA card)
+the kernel matches the plain version and its plan's walk.
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (another summation
 order), 1e-12 in f64.  The JAX package is imported inside the tests, so the
@@ -22,9 +23,9 @@ import torch
 
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
-from sparsemat_tpu_torch.formats.slab import SUBLANE, WINDOW
+from sparsemat_tpu_torch.formats.slab import SUBLANE
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import slab as ksl
-from sparsemat_tpu_torch.kernels._common import block_ranges
 
 STREAM_ARRAYS = ("vals", "lidx", "win_id", "blk_id", "cnt8")
 
@@ -203,46 +204,41 @@ def test_dispatch_and_cpu_wrapper_counts_nothing():
 
 # -- the CUDA kernel's design, replayed on the host ---------------------------------
 
-def replay_cuda_design(st, x):
-    """The SlabStream kernel of csrc/slab.cu in numpy: per row block, the
-    chunks of its range (through the plan's order), each row summing its 8
-    slots per chunk."""
-    n_rows, n_cols = st.shape
-    rb, n_rb = st.row_block, st.n_row_blocks
-    ptr, order = block_ranges(st.host("blk_id"), n_rb)
-    vals, lidx, win = st.vals.double().numpy(), st.lidx.numpy(), st.win_id.numpy()
-    xp = np.concatenate([x, np.zeros(1)])
-    y = np.zeros(n_rb * rb)
-    for b in range(n_rb):
-        for i in range(ptr[b], ptr[b + 1]):
-            c = i if order is None else order[i]
-            cols = win[c] * WINDOW + lidx[c]
-            y[b * rb:(b + 1) * rb] += np.sum(
-                vals[c] * xp[np.where(cols < n_cols, cols, n_cols)], axis=0)
-    return y[:n_rows]
+def shuffled_with_stray(ts):
+    """The chunks of ``ts`` shuffled, plus one chunk of stored entries aimed
+    at a row block past the last."""
+    rb, dev = ts.row_block, ts.vals.device
+    perm = torch.from_numpy(np.random.default_rng(7).permutation(ts.n_chunks)).to(dev)
+    stray = dict(vals=torch.ones(1, SUBLANE, rb, dtype=ts.vals.dtype, device=dev),
+                 lidx=torch.zeros(1, SUBLANE, rb, dtype=torch.int32, device=dev),
+                 win_id=torch.zeros(1, dtype=torch.int32, device=dev),
+                 blk_id=torch.tensor([ts.n_row_blocks], dtype=torch.int32, device=dev),
+                 cnt8=torch.full((1, rb), SUBLANE, dtype=torch.int32, device=dev))
+    return dataclasses.replace(
+        ts, **{f: torch.cat([getattr(ts, f)[perm], stray[f]]) for f in STREAM_ARRAYS})
 
 
 @pytest.mark.parametrize("name,rb", [("mixed_1100", 128), ("rect_900x200", 256),
                                      ("empty", 128)])
 def test_cuda_design_replay_in_and_out_of_block_order(name, rb):
+    """The kernel walks the plan of the stored entries: chunks shuffled out
+    of block order, plus a chunk aimed past the last row block (dropped),
+    give the plan of the frozen stream array for array, and its walk gives
+    A @ x."""
     m = MATRICES[name]().astype(np.float64)
     ts = tsm.CSR.from_scipy(m).to_slab_stream(rb=rb)
     x = np.random.default_rng(6).standard_normal(m.shape[1])
+    xt = torch.from_numpy(x)
     want = m @ x
-    assert rel_err(replay_cuda_design(ts, x), want) < 1e-12
-    # the same chunks shuffled, plus one chunk aimed past the last row block
-    perm = torch.from_numpy(np.random.default_rng(7).permutation(ts.n_chunks))
-    stray = dict(vals=torch.ones(1, SUBLANE, rb, dtype=torch.float64),
-                 lidx=torch.zeros(1, SUBLANE, rb, dtype=torch.int32),
-                 win_id=torch.zeros(1, dtype=torch.int32),
-                 blk_id=torch.tensor([ts.n_row_blocks], dtype=torch.int32),
-                 cnt8=torch.zeros(1, rb, dtype=torch.int32))
-    shuffled = dataclasses.replace(
-        ts, **{f: torch.cat([getattr(ts, f)[perm], stray[f]]) for f in STREAM_ARRAYS})
-    ptr, _ = block_ranges(shuffled.host("blk_id"), ts.n_row_blocks)
-    assert ptr[-1] == ts.n_chunks                          # the stray chunk is dropped
-    assert rel_err(replay_cuda_design(shuffled, x), want) < 1e-12
-    assert rel_err(ksl.slab_stream_spmv_ref(shuffled, torch.from_numpy(x)), want) < 1e-12
+    plan = rg.plan_of(ts)
+    assert rel_err(rg.spmv_walk(plan, xt), want) < 1e-12
+    shuffled = shuffled_with_stray(ts)
+    got = rg.plan_of(shuffled)
+    assert got.nnz == plan.nnz == m.nnz                    # the stray chunk is dropped
+    for f in ("grp_ptr", "cols", "mask", "vals"):
+        assert torch.equal(getattr(got, f), getattr(plan, f)), f
+    assert rel_err(rg.spmv_walk(got, xt), want) < 1e-12
+    assert rel_err(ksl.slab_stream_spmv_ref(shuffled, xt), want) < 1e-12
 
 
 # -- canonical views and structure ----------------------------------------------------
@@ -305,19 +301,22 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, rb):
     assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 1}
     assert y.dtype == y_ref.dtype and y.shape == (ts.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
+    assert rel_err(y.cpu(), rg.spmv_walk(rg.plan_of(ts), x).cpu()) < TOL[dtype]
     assert torch.equal(ksl.slab_stream_spmv(ts, x), y)           # reruns bitwise
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_takes_chunks_out_of_block_order(cuda):
     ts = tsm.CSR.from_scipy(mixed_degree(1100, 22), device=cuda).to_slab_stream(rb=128)
-    perm = torch.randperm(ts.n_chunks, generator=torch.Generator().manual_seed(0)).to(cuda)
-    shuffled = dataclasses.replace(ts, **{f: getattr(ts, f)[perm].contiguous()
-                                          for f in STREAM_ARRAYS})
+    shuffled = shuffled_with_stray(ts)
     x = torch.randn(1100, device=cuda)
-    assert rel_err(ksl.slab_stream_spmv(shuffled, x).cpu(),
-                   ksl.slab_stream_spmv_ref(ts, x).cpu()) < 1e-5
-    assert shuffled.__dict__["_stream_plan"].order is not None
+    y = ksl.slab_stream_spmv(shuffled, x)
+    assert rel_err(y.cpu(), ksl.slab_stream_spmv_ref(ts, x).cpu()) < 1e-5
+    plan, want = rg.plan_of(shuffled), rg.plan_of(ts)
+    assert plan.grp_ptr.device == x.device
+    for f in ("grp_ptr", "cols", "mask", "vals"):
+        assert torch.equal(getattr(plan, f), getattr(want, f)), f
+    assert torch.equal(ksl.slab_stream_spmv(ts, x), y)   # one plan, one answer
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 freeze gives the same arrays bit for bit (it is the same host numpy
 program), the same errors, the same xᵀ tiles; ``strip_spmv_ref`` matches the
 Pallas kernel in interpret mode and the XLA oracle; and (on a CUDA card) the
-CUDA kernel matches the plain version.
+row-group SpMV over the matrix's plan matches the plain version and the
+plan's walk.
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (other summation
 orders), 1e-12 in f64.  f32 operands are passed explicitly, because
@@ -20,6 +21,7 @@ from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for th
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.formats import strip as tstrip
 from sparsemat_tpu_torch.interop import from_reference
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import strip as ks
 
 ARRAYS = ("vals", "lidx", "wrel", "wtile", "occ")
@@ -316,6 +318,7 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, layout):
     assert ks.LAUNCHES == {"strip_spmv": 1}
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
+    assert rel_err(y.cpu(), rg.spmv_walk(rg.plan_of(st), x).cpu()) < TOL[dtype]
     assert torch.equal(ks.strip_spmv(st, x), y)          # reruns bitwise
 
 
@@ -326,3 +329,5 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         ks.strip_spmv(st, torch.zeros(300))                  # vector on the CPU
     with pytest.raises(ValueError):
         ks.strip_spmv(st, torch.zeros(301, device=cuda))     # wrong length
+    with pytest.raises(TypeError):
+        ks.strip_spmv(st, torch.zeros(300, dtype=torch.int32, device=cuda))
