@@ -11,7 +11,8 @@ the preconditioned solvers, on the pwtk-class surrogate
 ``matgen.fem_block_band()`` at its full 217,920 rows (the reference
 benchmark's fem config), made SPD by a dominant diagonal.  The circuit
 path: io.save_mtx → io.load_mtx → CSR → RouteStream → checkpoint.save_matrix
-/ load_matrix → spmv through the two route kernels → BiCGStab, GMRES(30),
+/ load_matrix → spmv through the merge-path route kernel over the
+RouteStream's compact plan at G = 1 (its CSR) → BiCGStab, GMRES(30),
 Jacobi and PCG(Jacobi), on the scircuit-class surrogate
 ``matgen.circuit_scatter() * 2e-2`` at its full 170,998 rows (the reference
 benchmark's config 4a).  The SpMM path: the pwtk-class operator
@@ -63,24 +64,30 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 included) and the kernel's device time (profiler), GB/s of
                 the plan, x and y, and PCG(Jacobi) iterations/s through the
                 kernel and the plain version
- 13 route       both route kernels against their plain halves (staging on
-                the regions' rows, y from the same staging, and the SpMV),
-                f32, f64 and bf16 values: the JAX package's test shapes,
-                heavy Zipf rows, a stored zero, rectangular 300×250, empty
-                5×7, 3×3, and a layout with two splits
+ 13 route       the merge-path route kernel against its plain version (the
+                two table halves) and bitwise against the walk of its plan in
+                its order, at the default tile and at tiles of 8 and 16
+                items (rows spanning 2 and more tiles), reruns bitwise, the
+                plan equal to the CSR, f32, f64 and bf16 values: the JAX
+                package's test shapes, heavy Zipf rows, a stored zero,
+                rectangular 300×250, empty 5×7, 3×3, a layout with two
+                splits, and a row of 3,500 entries
  14 circuit     the circuit path at full size: save_mtx / load_mtx (the C++
                 parser), to_route, a RouteStream checkpoint reloaded to the
                 card (its spmv bitwise equal), spmv vs the CSR stream path,
                 BiCGStab, GMRES(30), Jacobi on the nonsymmetric operator and
                 PCG(Jacobi) on a symmetric variant, true residuals in f64 on
-                the host; the route launch counters must be > 0; each kernel
-                vs its plain version at full size, f32 and f64
+                the host; the route_spmv launch counter must be > 0; the
+                kernel vs its plain version and the walk at full size, f32
+                and f64
  15 determinism route spmv and the BiCGStab run rerun bitwise
- 16 times       each route kernel vs its plain half and the route SpMV vs its
-                plain version (CUDA events, per call), device times
-                (profiler), GB/s of RouteStream.spmv_traffic_bytes, BiCGStab
-                iterations/s through the kernels and the plain version, and
-                the host seconds of the path's steps
+ 16 times       the route SpMV vs its plain version (CUDA events, per call)
+                and its device time (profiler), against its bound,
+                torch.mv and the row-group SpMV over the same G = 1 plan;
+                its device time at five tile sizes; the merge split (tiles,
+                spanning rows, longest span); launches per BiCGStab
+                iteration; BiCGStab iterations/s through the kernel and the
+                plain version, and the host seconds of the path's steps
  17 bsr         the row-group SpMM kernel through the BSR wrapper against
                 its plain version, f32, f64 and bf16 blocks: the JAX
                 package's test shapes (64×256 m = 64, 100×300 m = 129),
@@ -151,8 +158,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 to_well, to_slab_stream, to_slab_pack and the plans
 Every kernel's timing phase also times one PyTorch library call that
 computes the same function on the same operator (torch.mv or
-torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot, the chain
-and the two route halves), as a yardstick only; computes the kernel's
+torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot and the
+chain), as a yardstick only; computes the kernel's
 bound: the larger of the bytes the function needs over 3.35 TB/s and its
 f32 operations over 67 Tflop/s (the H100 SXM's published rates), where a
 sparse product needs its entries in CSR (value and column index, row
@@ -166,15 +173,18 @@ Then a JSON line of the kernels and, last, the device JSON line.
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
 64 CG iterations through the kernels at 512² and 2048², of 64 PCG(Jacobi)
 iterations on the FEM StripELL and SlabStream and of 64 BiCGStab iterations
-on the circuit RouteStream, and prints the device time per iteration by
+on the circuit RouteStream (the merge-path kernel), and prints the device time per iteration by
 kernel (and of each path's SpMV kernel on a line of its own) and the
 device's busy share of wall time.
 
 Tolerances (relative to max|reference|): f32 y 1e-5 (the same sums,
 rounded with and without fused multiply-add, and for the row-group and
-route kernels in another order: the route reduce sums each segment directly
-where its plain version differences a prefix sum), f32 dot 1e-4 (another
-summation order), f64 1e-12.  bf16 and f16 operands are widened to f32 by
+route kernels in another order: the route kernel sums each row in merge
+order where its plain version differences a prefix sum of the routed
+products), f32 dot 1e-4 (another summation order), f64 1e-12.  The route
+kernel is also held bitwise to the walk of its plan, which replays its
+order (it rounds each product before adding it, so no fused multiply-add
+comes between them).  bf16 and f16 operands are widened to f32 by
 both versions and held to the f32 tolerance.  Matrix products run in full
 f32 (TF32 is switched off below).
 """
@@ -211,10 +221,8 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
            "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
            "strip_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/strip.py:42"),
-           "route_gather": ("sparsemat_tpu_torch/csrc/route.cu",
-                            "sparsemat_tpu/kernels/route.py:102"),
-           "route_reduce": ("sparsemat_tpu_torch/csrc/route.cu",
-                            "sparsemat_tpu/kernels/route.py:198"),
+           "route_spmv": ("sparsemat_tpu_torch/csrc/route.cu",
+                          "sparsemat_tpu/kernels/route.py:102, sparsemat_tpu/kernels/route.py:198"),
            "bsr_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                         "sparsemat_tpu/kernels/spmm.py:72"),
            "slab_spmv": (_SPMV_CU,
@@ -583,7 +591,7 @@ def profile_solvers(dev, iters=64):
     rs = tsm.CSR.from_scipy((matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr(),
                             device=dev).to_route()
     b = torch.randn(rs.shape[0], generator=gen(dev), device=dev)
-    cases.append(("BiCGStab circuit RouteStream", "route_",
+    cases.append(("BiCGStab circuit RouteStream", "route_spmv_kernel",
                   lambda k, b=b: solvers.bicgstab(rs, b, tol=0.0, maxiter=k)))
     for label, key, solve in cases:
         solve(4)                        # builds the launch plan outside the timing
@@ -790,9 +798,11 @@ def fem_phases(dev, g, times, launches):
 
 
 def route_cases():
-    """(label, scipy matrix) for the route kernels against their plain
-    versions: the JAX package's RouteStream test matrices
-    (tests/test_route.py) and a layout with two splits."""
+    """(label, scipy matrix) for the route kernel against its plain
+    version: the JAX package's RouteStream test matrices
+    (tests/test_route.py), a layout with two splits, and a row of 3,500
+    entries beside empty rows (it spans 3 tiles at the default 1,536
+    items)."""
     def scatter(n, dens, seed, with_zero=False):
         m = sp.random(n, n, dens, random_state=seed, format="csr").astype(np.float32)
         m.data = (m.data * 10 - 5).astype(np.float32)
@@ -815,22 +825,38 @@ def route_cases():
               ("3x3", sp.csr_matrix(np.array([[1.0, 0, 2.0], [0, 0, 0], [0, 3.0, 0]],
                                              np.float32))),
               ("two splits", sp.random(600, 128, 0.5, format="csr", dtype=np.float32,
-                                       random_state=np.random.default_rng(0)))]
+                                       random_state=np.random.default_rng(0))),
+              ("heavy row", heavy_route_row())]
     return cases
 
 
-def check_route_kernels(rs, x, tol, what):
-    """Each route kernel against its plain half on the same input, and the
-    SpMV against the plain SpMV; the worst relative error."""
-    n = rs.n_regions * 128          # the spare rows past the regions hold no product
-    staging = kr.route_gather(rs, x)
-    staging_ref = kr.route_gather_ref(rs, x)
-    errs = [compare("route_gather", staging[:n], staging_ref[:n], tol, f"route_gather {what}"),
-            compare("route_reduce", kr.route_reduce(rs, staging_ref),
-                    kr.route_reduce_ref(rs, staging_ref), tol, f"route_reduce {what}")]
+def heavy_route_row():
+    """400×4000 scatter with row 7 holding 3,500 entries and rows 9 and
+    100–119 empty (tests/test_torch_route_merge.py's ``heavy``)."""
+    m = sp.random(400, 4000, 0.002, format="lil", dtype=np.float32, random_state=3)
+    m[7, :3500] = 1.5
+    m[9, :] = 0
+    m[100:120, :] = 0
+    return m.tocsr()
+
+
+def check_route_kernel(rs, x, tol, what, tiles=(8, 16)):
+    """The route kernel through the wrapper (the plan's own split) and over
+    splits of ``tiles`` items against its plain version (the table halves)
+    and bitwise against the walk of the same split; reruns bitwise.  The
+    worst relative error."""
     y, y_ref = kr.route_spmv(rs, x), kr.route_spmv_ref(rs, x)
     check(y.dtype == y_ref.dtype, f"{what}: dtype {y.dtype} vs {y_ref.dtype}")
-    errs.append(compare(None, y, y_ref, tol, f"route_spmv {what}"))
+    check(torch.equal(kr.route_spmv(rs, x), y), f"route_spmv {what}: rerun differs")
+    plan = krg.plan_of(rs)
+    errs = []
+    for split in [plan.merge] + [krg.MergeSplit(plan, t) for t in tiles]:
+        got = y if split is plan.merge else kr.launch(plan, split, x)
+        walk = kr.route_spmv_walk(plan, split, x)
+        where = f"route_spmv {what} tile {split.items}"
+        errs.append(compare("route_spmv", got, y_ref, tol, where))
+        check(torch.equal(got, walk), f"{where}: differs from the walk of its split by "
+              f"{float((got.double() - walk.double()).abs().max()):.3e}")
     return max(errs)
 
 
@@ -856,23 +882,33 @@ def bicgstab_iters_per_s(A, b, iters):
 
 
 def route_phases(dev, g, times, launches):
-    """Phases 13–16: the route kernels against their plain versions, and
-    the circuit path.  Adds the route kernels' times and main-path launches
-    to ``times`` and ``launches``."""
+    """Phases 13–16: the route kernel against its plain version and its
+    walk, and the circuit path.  Adds the route kernel's times and main-path
+    launches to ``times`` and ``launches``."""
     # 13 -----------------------------------------------------------------------
     worst = {}
     for label, m in route_cases():
+        m = m.tocsr()
+        m.sort_indices()
         rs = tsm.CSR.from_scipy(m, device=dev).to_route()
         check(rs.n_non_zero_entries() == m.nnz, f"{label}: nnz")
+        plan = krg.plan_of(rs)
+        check(plan.group == 1 and np.array_equal(plan.grp_ptr.cpu().numpy(), m.indptr)
+              and np.array_equal(plan.cols.cpu().numpy(), m.indices)
+              and np.array_equal(plan.vals[0].cpu().numpy(), m.data),
+              f"{label}: the RouteStream's plan is not its CSR")
         xs = torch.randn(m.shape[1], generator=g, device=dev)
         errs = []
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
-            errs.append(check_route_kernels(rs.astype(dt), x_dt, TOL[dt]["y"], f"{label} {dt}"))
-        worst[f"{label} (splits {rs.n_splits})"] = max(errs)
+            errs.append(check_route_kernel(rs.astype(dt), x_dt, TOL[dt]["y"], f"{label} {dt}"))
+        split = plan.merge
+        worst[f"{label} ({split.n_tiles} tiles, {split.n_span} spanning rows, longest "
+              f"{split.longest})"] = max(errs)
     torch.cuda.synchronize()
-    say("13 route", "both kernels vs plain within tolerance (f32, f64, bf16 values); worst "
-        "rel err per case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+    say("13 route", "kernel vs plain within tolerance and bitwise equal to the walk at tiles "
+        f"of {krg.MERGE_ITEMS}, 8 and 16 items (f32, f64, bf16 values); worst rel err per "
+        "case: " + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
 
     # 14 -----------------------------------------------------------------------
     host = {}
@@ -914,7 +950,7 @@ def route_phases(dev, g, times, launches):
     x = torch.randn(n, generator=g, device=dev)
     y = tsm.spmv(rs, x)
     check(torch.equal(tsm.spmv(rs0, x), y), "the reloaded RouteStream's spmv differs")
-    e_csr = compare(None, y, tsm.spmv(csr, x), 1e-5, "circuit spmv route kernels vs CSR stream")
+    e_csr = compare(None, y, tsm.spmv(csr, x), 1e-5, "circuit spmv route kernel vs CSR stream")
     b = torch.randn(n, generator=g, device=dev)
     report = {}
 
@@ -943,14 +979,14 @@ def route_phases(dev, g, times, launches):
 
     full = []
     for dt in (torch.float32, torch.float64):
-        full.append(check_route_kernels(rs.astype(dt), x.to(dt), TOL[dt]["y"],
-                                        f"circuit {dt}"))
+        full.append(check_route_kernel(rs.astype(dt), x.to(dt), TOL[dt]["y"],
+                                       f"circuit {dt}", tiles=(256,)))
     say("14 circuit", f"circuit_scatter·2e-2: {n} rows, {csr.n_non_zero_entries()} entries, "
         f"longest row {int(np.diff(m.indptr).max())}; .mtx {mtx_mb:.1f} MB, checkpoint "
         f"{npz_mb:.1f} MB; n_sup {rs.n_sup}, n_splits {rs.n_splits}, n_regions "
         f"{rs.n_regions}, nse {rs.nse}, fill {rs.fill_ratio():.3f}, spmv_traffic_bytes "
         f"{rs.spmv_traffic_bytes()}; spmv vs CSR rel err {e_csr:.2e}; kernels vs plain "
-        f"f32 {full[0]:.2e} f64 {full[1]:.2e}; solves to rtol {SOLVE_RTOL} (iterations, true "
+        f"f32 {full[0]:.2e} f64 {full[1]:.2e} (and bitwise equal to the walk); solves to rtol {SOLVE_RTOL} (iterations, true "
         "relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
         + f"; route launches {({k: launches[k] for k in kr.LAUNCHES})}")
@@ -964,55 +1000,56 @@ def route_phases(dev, g, times, launches):
     say("15 determinism", "route spmv and BiCGStab rerun bitwise equal")
 
     # 16 -----------------------------------------------------------------------
-    mb = rs.spmv_traffic_bytes() / 1e6
-    staging = kr.route_gather(rs, x)
-    # each half's own bytes: the gather reads the products' tables and x and
-    # writes the staging buffer, the reduce reads it back with its tables
-    staging_b = kr.staging_rows(rs) * 128 * 4
     nnz = csr.n_non_zero_entries()
-    layout_bytes = {"route_gather": nbytes(rs.a_vals, rs.a_lidx, rs.a_win, rs.p1, rs.m1, rs.p2,
-                                           rs.p3, rs.touch) + n * 4 + staging_b,
-                    "route_reduce": staging_b + nbytes(rs.q1, rs.q2, rs.q3, rs.lpos, rs.ppos,
-                                                       rs.pmask, rs.segmask, rs.wrow) + n * 4}
-    # what each half needs: the gather reads each entry's value and column
-    # and x, and writes one product per entry; the reduce reads the products
-    # and the row pointers and writes y
-    half_bytes = {"route_gather": nnz * (4 + 4) + n * 4 + nnz * 4,
-                  "route_reduce": nnz * 4 + (n + 1) * 4 + n * 4}
-    for name, kern, plain, arg in (("route_gather", kr.route_gather, kr.route_gather_ref, x),
-                                   ("route_reduce", kr.route_reduce, kr.route_reduce_ref,
-                                    staging)):
-        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(rs, arg), lambda: plain(rs, arg), 20)
-        b_ms, _ = record(times, name, k_ms, p_ms, half_bytes[name], nnz, None)
-        d_ms = device_us(lambda: kern(rs, arg), 20, f"{name}_kernel",
-                         lambda: kr.LAUNCHES[name]) / 1e3
-        say("16 times", f"{name} circuit f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
-            f"of it {d_ms:.4f} ms on the device (profiler); plain {p_ms:.4f} ms runs {p_runs}; "
-            f"bound {b_ms:.4f} ms of {half_bytes[name]} bytes needed; "
-            f"{layout_bytes[name] / 1e6 / k_ms:.1f} GB/s of the layout's "
-            f"{layout_bytes[name]} bytes")
+    plan = krg.plan_of(rs)
+    split = plan.merge
+    need = need_bytes(nnz, csr.shape)
+    mb = (plan.nbytes + 2 * n * 4) / 1e6        # what the kernel reads and writes
     k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kr.route_spmv(rs, x),
                                            lambda: kr.route_spmv_ref(rs, x), 20)
-    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_",
-                     lambda: sum(kr.LAUNCHES.values())) / 1e3
-    c_ms = cuda_ms(lambda: tsm.spmv(csr, x), 20)
+    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_spmv_kernel",
+                     lambda: kr.LAUNCHES["route_spmv"]) / 1e3
     A_lib = torch_csr(csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
     del A_lib
-    say("16 times", f"route spmv circuit f32: kernels {k_ms:.4f} ms per call ({mb / k_ms:.1f} "
-        f"GB/s of {mb:.1f} MB spmv_traffic_bytes; {nnz / k_ms / 1e6:.3f} Gnnz/s) runs "
-        f"{k_runs}, of it {d_ms:.4f} ms on the device in the two kernels ({mb / d_ms:.1f} "
-        f"GB/s, profiler); plain {p_ms:.4f} ms runs {p_runs}; CSR stream path {c_ms:.4f} ms; "
-        f"torch.mv on the CSR (the pair's yardstick) {lib} ms")
+    b_ms, _ = record(times, "route_spmv", k_ms, p_ms, need, 2 * nnz, lib)
+    times["route_spmv"].update(device_ms=d_ms, bound_counts="CSR")
+    # the row-group SpMV over the same G = 1 plan, for the choice of kernel
+    # on such plans (launched here only)
+    rg_count = {"rowgroup_spmv": 0}
+    y_rg = krg.launch_spmv(plan, x, rg_count, "rowgroup_spmv")
+    e_rg = compare(None, y_rg, y, 1e-5, "row-group SpMV over the route plan vs the route kernel")
+    rg_ms = cuda_ms(lambda: krg.launch_spmv(plan, x, rg_count, "rowgroup_spmv"), 20)
+    rg_d_ms = device_us(lambda: krg.launch_spmv(plan, x, rg_count, "rowgroup_spmv"), 20,
+                        "rowgroup_spmv_kernel", lambda: rg_count["rowgroup_spmv"]) / 1e3
+    times["route_spmv"].update(rowgroup_ms=rg_ms, rowgroup_device_ms=rg_d_ms)
+    say("16 times", f"route spmv circuit f32: kernel {k_ms:.4f} ms per call runs {k_runs}, of "
+        f"it {d_ms:.4f} ms on the device (profiler; {mb / d_ms:.1f} GB/s of the {mb:.2f} MB "
+        f"plan, x and y; {nnz / d_ms / 1e6:.3f} Gnnz/s); plain {p_ms:.4f} ms runs {p_runs}; "
+        f"bound {b_ms:.4f} ms ({need} bytes of the CSR, x and y); torch.mv on the CSR {lib} "
+        f"ms; the row-group SpMV over the same G = 1 plan {rg_ms:.4f} ms per call, "
+        f"{rg_d_ms:.4f} ms on the device ({plan.spmv.lanes} lanes, {plan.spmv.n_seg} "
+        f"segments; rel err to the route kernel {e_rg:.2e})")
+    say("16 times", f"merge split: {split.items} items a tile ({split.ipt} a thread), "
+        f"{split.n_tiles} tiles for {n} rows and {nnz} entries, {split.n_span} spanning rows "
+        f"({split.n_partial} partials), the longest over {split.longest} tiles")
+    sweep = {}
+    for items in (256, 512, 1024, 1536, 2048):
+        sp_ = krg.MergeSplit(plan, items)
+        check(torch.equal(kr.launch(plan, sp_, x), kr.route_spmv_walk(plan, sp_, x)),
+              f"route_spmv at {items} items differs from its walk")
+        sweep[items] = device_us(lambda: kr.launch(plan, sp_, x), 20, "route_spmv_kernel",
+                                 lambda: kr.LAUNCHES["route_spmv"]) / 1e3
+    say("16 times", "route kernel device ms by tile items (profiler): "
+        + "; ".join(f"{k} {v:.4f} ({-(-(n + nnz) // k)} tiles)" for k, v in sweep.items()))
     per = per_step(lambda: kr.LAUNCHES,
                    lambda j: solvers.bicgstab(rs, b, tol=0.0, maxiter=j), 32)
-    for name in kr.LAUNCHES:
-        note_steps(times, name, per[name], "BiCGStab iteration, circuit RouteStream")
+    note_steps(times, "route_spmv", per["route_spmv"], "BiCGStab iteration, circuit RouteStream")
     say("16 times", f"route launches per BiCGStab iteration {per}")
     plain = lambda v: kr.route_spmv_ref(rs, v)  # noqa: E731
     runs = [bicgstab_iters_per_s(plain, b, 32), bicgstab_iters_per_s(rs, b, 128),
             bicgstab_iters_per_s(rs, b, 128), bicgstab_iters_per_s(plain, b, 32)]
-    say("16 times", f"BiCGStab f32 circuit: kernels {(runs[1] + runs[2]) / 2:.1f} iters/s "
+    say("16 times", f"BiCGStab f32 circuit: kernel {(runs[1] + runs[2]) / 2:.1f} iters/s "
         f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
         f"runs {[runs[0], runs[3]]}")
     say("16 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))

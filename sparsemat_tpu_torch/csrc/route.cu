@@ -1,204 +1,236 @@
-// RouteStream SpMV kernels for Hopper (sm_90a), bound to Python with ctypes
-// through the plain C functions at the end of this file.
+// RouteStream SpMV kernel for Hopper (sm_90a): y = A @ x as one
+// nnz-balanced (merge-path) CSR SpMV over the RouteStream's compact plan,
+// bound to Python with ctypes through the plain C functions at the end of
+// this file.
 //
-// Replaces sparsemat_tpu/kernels/route.py: route_gather_pallas (kernel 1)
-// and route_reduce_pallas (kernel 2).  The layout (formats/route.py) is the
-// JAX package's, bit for bit; what the two kernels compute is the same:
+// Replaces sparsemat_tpu/kernels/route.py: route_gather_pallas (:102) and
+// route_reduce_pallas (:198), the two kernels route_spmv_pallas (:271)
+// launches.  On the TPU the gather routes every product a_vals * x through
+// three lane gathers and two transposes into a staging buffer, and the
+// reduce permutes it back and takes segment sums as differences of a lane
+// prefix sum on the MXU, because Mosaic has no sublane gather.  A GPU thread
+// gathers x directly, so this kernel reads none of those tables: it walks
+// the plan kernels/_rowgroup.py builds from RouteStream.to_coo at groups of
+// one row, which is the matrix's CSR (row_ptr = grp_ptr; the entries'
+// columns and values in row order; padding slots dropped, stored zeros
+// kept).  The frozen layout stays bit-equal to the JAX freeze.
 //
-//   gather:  for supertile t, split sp, arrival slot (j, l):
-//              c = p3[t,sp,j,l], s = p2[t,sp,c,j], m = m1[t,sp,s,c]
-//              staging[touch[t,sp,j]*128 + l] += m * prod[t, s, p1[t,sp,s,c]]
-//            with prod[t, s, k] = a_vals[t*128+s, k] * x[a_win[t*128+s]*128 + a_lidx[...]]
-//            (a column >= n_cols reads 0);
-//   reduce:  for region R, staging row j (reduce layout), lane l:
-//              c = q3[R,j,l], s = q2[R,c,j], v[j,l] = staging[R*128 + s, q1[R,s,c]]
-//            and for every lane r with segmask[R,j,r] = 1:
-//              y[wrow[R,j]*128 + r] += sum of v[j, k] for k in (ppos, lpos]
-//            (k from 0 where pmask = 0).
+// What bounds it on an H100: bytes.  It needs the CSR, x and y, each read
+// or written once (9.43 MB on the 170,998-row circuit operator, 0.0028 ms
+// at 3.35 TB/s); x (684 KB there) is gathered from L2.  What stands in the
+// way is the spread of row lengths: on that operator the median row holds
+// 2 entries and the longest 3,751, so a split by rows leaves a few warps
+// walking long rows while most hold almost nothing.  This kernel splits
+// the work by items instead.
 //
-// What the TPU kernels needed and these do not.  Mosaic has no sublane
-// gather, so the TPU composes each permutation from three lane gathers and
-// two transposes, and takes the segment sums as differences of a lane
-// prefix sum computed by an MXU matmul.  A GPU thread reads any element of
-// a tile in shared memory, so each composed permutation is one gather, and
-// each segment is summed directly (the quantity the prefix difference
-// computes, with less cancellation).
-//
-// Design (a simple pair that is right; composing the routing into one
-// destination per A-slot at plan time, which would drop the four routing
-// tables from every SpMV, is later work):
-//   * route_gather_kernel: one CTA per (supertile, split), 1024 threads.  The
-//     CTA computes its supertile's 128x128 products into shared memory
-//     (64 KB in f32, 128 KB in f64), then routes the split's 16,384 arrival
-//     slots.  The freeze gives every real product its own staging slot and
-//     gives dummies m1 = 0, so each real slot is STORED (no atomics, no
-//     read-modify-write) into a buffer the launcher zeroes on the stream;
-//     the wrapper checks the one-product-per-slot invariant once per matrix.
-//   * route_reduce_kernel: one CTA per 128-row y window, 8 warps.  The freeze
-//     packs a window's segments into consecutive staging rows [win_lo,
-//     win_hi), so the CTA owns them all: warp v takes rows win_lo + v,
-//     win_lo + v + 8, ...; for each it gathers the row's reduce layout into
-//     its own shared-memory row (4 lanes a thread), then each thread adds
-//     the segments of its 4 lanes, keeping per-lane sums in registers.  At
-//     the end the 8 warps' sums are added in warp order and each y row is
-//     written once.  A matrix row of more than 128 entries (chunks on several
-//     staging rows, possibly in two regions) is summed within the window in
-//     that fixed order.  No atomics, so reruns are bitwise equal.  Several
-//     warps per window, because each row costs a chain of four dependent
-//     loads (q3, q2, q1, staging): walked by one warp, the windows that hold
-//     the longest matrix rows (up to 40 staging rows on the scircuit-class
-//     operator, 6.3 on average) would set the kernel's time.
-//
-// What bounds them on an H100.  Device-memory bytes: per SpMV the kernels
-// read the values and column indices once, the four routing tables and the
-// seven reduce tables once, x as a gather within 128-column windows, and
-// write and read the staging buffer once (RouteStream.spmv_traffic_bytes).
-// The routing reads (p2, m1, p1 at data-dependent positions) stay inside one
-// 64 KB table per CTA and hit L1/L2.  On the scircuit-class operator the
-// gather grid is only n_sup * n_splits (~126) CTAs, about one per SM.
+// Design (Merrill & Garland, "Merge-based Parallel Sparse Matrix-Vector
+// Multiplication", SC16):
+//   * the merge of the row ends with the entries (n_rows + nnz items, a
+//     row's end after its last entry) is cut into tiles of tile_items items,
+//     one CTA each; the split (_rowgroup.MergeSplit, built once per matrix)
+//     gives each tile its start (row, entry), so a CTA loads its bounds and
+//     searches nothing across tiles;
+//   * the CTA copies its tile's row ends, column indices and values into
+//     shared memory with cp.async.  The copies are 4 or 8 bytes a thread,
+//     not 16: a tile starts at any entry, so 16-byte copies would need a
+//     ragged head and tail.  Neighbouring threads copy neighbouring
+//     elements (coalesced), and all copies are in flight before one wait,
+//     with no round trip through registers.  Then thread tid multiplies
+//     entries tid, tid + 256, ... by x at their columns, in place, its
+//     gathers unrolled so that up to 8 are in flight;
+//   * each thread takes ipt = ceil(tile_items / 256) consecutive merge items,
+//     finds its start by a binary search over the tile's row ends in shared
+//     memory, and walks them: an entry adds its product to the running sum,
+//     a row end closes the row.  A row the thread holds from its first item
+//     is written directly (an empty row as 0).  The sums of the row each
+//     thread leaves open are combined by a segmented inclusive scan keyed by
+//     row (Hillis-Steele in shared memory), which the first row each thread
+//     closes takes as its carry.  So every thread holds the same number of
+//     items, however the rows spread;
+//   * a row whose items lie in several tiles (the split lists it) gets one
+//     partial per tile; the tile that arrives last (a ticket counter per
+//     row) adds them in tile order, writes y once and resets its counter to
+//     0 for the next launch, so the wrapper launches no zeroing.  Values
+//     never meet an atomic, so reruns are bitwise equal.  Every sum is taken
+//     in a fixed order, which route_spmv_walk (kernels/route.py) replays;
+//   * no padding slot exists in the plan, so where x holds inf or NaN the
+//     answer is the CSR product's (a stored zero still gives 0 * inf = NaN);
+//   * shared memory is sized by tile_items and stays under 48 KB (46,080
+//     bytes at 2,048 items in f64), so no launch sets a function attribute.
+//     One launch per SpMV, no memset;
+//   * no tensor cores: 2 flops per 8-12 bytes is far under the ridge.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int LANE = 128;                // lanes per row; rows per supertile / region
-constexpr int TILE = LANE * LANE;        // slots per supertile, split or region
-constexpr int GATHER_THREADS = 1024;
-constexpr int REDUCE_WARPS = 8;
-constexpr int LANES_PER_THREAD = LANE / 32;
+constexpr int THREADS = 256;                // per CTA (_rowgroup.MERGE_THREADS)
+constexpr int MAX_ITEMS = 2048;             // merge items a tile may hold (MERGE_MAX_ITEMS)
+constexpr int MAX_IPT = MAX_ITEMS / THREADS;
+
+// Dynamic shared memory of a tile of `items` items: row ends (int64) and
+// values, then the scan's two buffers of sums (T), then columns and the
+// scan's rows (int).
+template <typename T>
+size_t smem_bytes(int items) {
+  return static_cast<size_t>(items) * (sizeof(int64_t) + sizeof(T) + sizeof(int)) +
+         THREADS * (2 * sizeof(T) + sizeof(int));
+}
+
+// Tile `tile`'s partial of spanning row s; the tile that arrives last adds
+// the row's partials in tile order, writes y and resets the counter.
+template <typename T>
+__device__ void add_partial(const int* __restrict__ span, int s, int tile, T value,
+                            T* __restrict__ partial, unsigned* __restrict__ tickets,
+                            T* __restrict__ y) {
+  const int row = __ldg(span + 4 * s);
+  const int first = __ldg(span + 4 * s + 1);
+  const int count = __ldg(span + 4 * s + 2);
+  const int64_t p0 = __ldg(span + 4 * s + 3);
+  partial[p0 + (tile - first)] = value;
+  __threadfence();  // the partial is visible before the ticket is taken
+  if (atomicAdd(tickets + s, 1u) != static_cast<unsigned>(count - 1)) return;
+  __threadfence();
+  T sum = T(0);
+  for (int k = 0; k < count; ++k) sum += __ldcg(partial + p0 + k);
+  y[row] = sum;
+  tickets[s] = 0u;  // every tile of the row has arrived
+}
 
 template <typename T>
-__global__ void __launch_bounds__(GATHER_THREADS)
-route_gather_kernel(const T* __restrict__ a_vals, const int* __restrict__ a_lidx,
-                    const int* __restrict__ a_win, const int* __restrict__ p1,
-                    const T* __restrict__ m1, const int* __restrict__ p2,
-                    const int* __restrict__ p3, const int* __restrict__ touch,
-                    int n_splits, int64_t n_cols, const T* __restrict__ x,
-                    T* __restrict__ staging) {
+__global__ void __launch_bounds__(THREADS)
+route_spmv_kernel(const int64_t* __restrict__ row_ptr, const int* __restrict__ cols,
+                  const T* __restrict__ vals, const int64_t* __restrict__ starts,
+                  const int* __restrict__ tile_span, const int* __restrict__ span,
+                  int tile_items, const T* __restrict__ x, T* __restrict__ y,
+                  T* __restrict__ partial, unsigned* __restrict__ tickets) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* prod = reinterpret_cast<T*>(smem);
-  const int64_t inst = blockIdx.x;             // supertile * n_splits + split
-  const int64_t t = inst / n_splits;           // supertile
-  const int64_t a0 = t * TILE;
+  int64_t* s_end = reinterpret_cast<int64_t*>(smem);   // row_ptr[r0 + 1 + k]
+  T* s_val = reinterpret_cast<T*>(s_end + tile_items);  // values, then products
+  T* s_sum = s_val + tile_items;                         // [2][THREADS]
+  int* s_col = reinterpret_cast<int*>(s_sum + 2 * THREADS);
+  int* s_row = s_col + tile_items;                       // [THREADS]
 
-  for (int i = threadIdx.x; i < TILE; i += GATHER_THREADS) {
-    const int64_t col = static_cast<int64_t>(__ldg(a_win + t * LANE + (i >> 7))) * LANE +
-                        __ldg(a_lidx + a0 + i);
-    const T xv = col < n_cols ? __ldg(x + col) : T(0);
-    prod[i] = __ldg(a_vals + a0 + i) * xv;
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int64_t r0 = __ldg(starts + 2 * tile);
+  const int64_t e0 = __ldg(starts + 2 * tile + 1);
+  const int n_r = static_cast<int>(__ldg(starts + 2 * tile + 2) - r0);  // row ends in the tile
+  const int n_e = static_cast<int>(__ldg(starts + 2 * tile + 3) - e0);  // entries in the tile
+  const int len = n_r + n_e;
+
+  // 1. the tile's row ends, columns and values into shared memory
+  for (int k = tid; k < n_r; k += THREADS)
+    __pipeline_memcpy_async(s_end + k, row_ptr + r0 + 1 + k, sizeof(int64_t));
+  for (int k = tid; k < n_e; k += THREADS) {
+    __pipeline_memcpy_async(s_col + k, cols + e0 + k, sizeof(int));
+    __pipeline_memcpy_async(s_val + k, vals + e0 + k, sizeof(T));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // 2. each entry's product, in place
+  {
+    T xv[MAX_IPT];
+#pragma unroll
+    for (int q = 0; q < MAX_IPT; ++q) {
+      const int k = tid + q * THREADS;
+      xv[q] = k < n_e ? __ldg(x + s_col[k]) : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < MAX_IPT; ++q) {
+      const int k = tid + q * THREADS;
+      if (k < n_e) s_val[k] = s_val[k] * xv[q];
+    }
   }
   __syncthreads();
 
-  const int64_t b = inst * TILE;
-  const int* P1 = p1 + b;
-  const T* M1 = m1 + b;
-  const int* P2 = p2 + b;
-  const int* P3 = p3 + b;
-  const int* TO = touch + inst * LANE;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < TILE; i += GATHER_THREADS) {
-    const int j = i >> 7;
-    const int l = i & (LANE - 1);
-    const int c = __ldg(P3 + i);
-    const int s = __ldg(P2 + c * LANE + j);
-    const T m = __ldg(M1 + s * LANE + c);
-    if (m != T(0)) {
-      staging[static_cast<int64_t>(__ldg(TO + j)) * LANE + l] =
-          m * prod[s * LANE + __ldg(P1 + s * LANE + c)];
-    }
+  // 3. this thread's items [d, d_end): i row ends and j entries lie before d
+  const int ipt = (tile_items + THREADS - 1) / THREADS;
+  const int d = min(tid * ipt, len);
+  const int d_end = min(d + ipt, len);
+  int lo = max(0, d - n_e);
+  int hi = min(d, n_r);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] - e0 + mid < d)
+      lo = mid + 1;
+    else
+      hi = mid;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(REDUCE_WARPS * 32)
-route_reduce_kernel(const T* __restrict__ staging, const int* __restrict__ q1,
-                    const int* __restrict__ q2, const int* __restrict__ q3,
-                    const int* __restrict__ lpos, const int* __restrict__ ppos,
-                    const T* __restrict__ pmask, const T* __restrict__ segmask,
-                    const int* __restrict__ win_lo, const int* __restrict__ win_hi,
-                    int64_t n_rows, T* __restrict__ y) {
-  __shared__ T row[REDUCE_WARPS][LANE];
-  __shared__ T part[REDUCE_WARPS][LANE];
-  const int w = blockIdx.x;
-  const int v = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g1 = __ldg(win_hi + w);
-  T acc[LANES_PER_THREAD];
-#pragma unroll
-  for (int q = 0; q < LANES_PER_THREAD; ++q) acc[q] = T(0);
-
-  for (int g = __ldg(win_lo + w) + v; g < g1; g += REDUCE_WARPS) {
-    const int64_t rb = static_cast<int64_t>(g >> 7) * TILE;  // region's tables
-    const int j = g & (LANE - 1);
-#pragma unroll
-    for (int q = 0; q < LANES_PER_THREAD; ++q) {
-      const int l = lane + 32 * q;
-      const int c = __ldg(q3 + rb + j * LANE + l);
-      const int s = __ldg(q2 + rb + c * LANE + j);
-      row[v][l] = __ldg(staging + rb + s * LANE + __ldg(q1 + rb + s * LANE + c));
-    }
-    __syncwarp();
-#pragma unroll
-    for (int q = 0; q < LANES_PER_THREAD; ++q) {
-      const int64_t e = rb + j * LANE + lane + 32 * q;
-      if (__ldg(segmask + e) != T(0)) {   // the tables hold 0 or 1
-        const int hi = __ldg(lpos + e);
-        const int lo = __ldg(pmask + e) != T(0) ? __ldg(ppos + e) + 1 : 0;
-        T seg = T(0);
-        for (int k = lo; k <= hi; ++k) seg += row[v][k];
-        acc[q] += seg;
+  int i = lo;
+  int j = d - lo;
+  T run = T(0);
+  T first_sum = T(0);
+  int first_row = -1;  // the first row this thread closes: it may carry a sum
+  for (int k = d; k < d_end; ++k) {
+    if (i < n_r && s_end[i] - e0 <= j) {  // row i's end: all its entries are in
+      if (first_row < 0) {
+        first_row = i;
+        first_sum = run;
+      } else {
+        y[r0 + i] = run;  // held from its first item
       }
+      run = T(0);
+      ++i;
+    } else {
+      run += s_val[j];
+      ++j;
     }
-    __syncwarp();
   }
-#pragma unroll
-  for (int q = 0; q < LANES_PER_THREAD; ++q) part[v][lane + 32 * q] = acc[q];
+
+  // 4. segmented inclusive scan of the open rows' sums, keyed by row (the
+  // rows are non-decreasing in tid, so equal keys are contiguous)
+  s_row[tid] = i;
+  s_sum[tid] = run;
   __syncthreads();
-  if (threadIdx.x < LANE) {
-    T sum = T(0);
-#pragma unroll
-    for (int u = 0; u < REDUCE_WARPS; ++u) sum += part[u][threadIdx.x];
-    const int64_t r = static_cast<int64_t>(w) * LANE + threadIdx.x;
-    if (r < n_rows) y[r] = sum;
+  const int n_active = (len + ipt - 1) / ipt;  // threads that hold items
+  int buf = 0;
+  for (int off = 1; off < n_active; off <<= 1) {
+    T v = s_sum[buf * THREADS + tid];
+    if (tid >= off && s_row[tid - off] == i) v = s_sum[buf * THREADS + tid - off] + v;
+    s_sum[(buf ^ 1) * THREADS + tid] = v;
+    buf ^= 1;
+    __syncthreads();
+  }
+  const T* scan = s_sum + buf * THREADS;
+
+  // 5. the first row each thread closes, with the sums of the threads before
+  // it; a row begun in an earlier tile gives this tile's partial instead
+  if (first_row >= 0) {
+    T v = first_sum;
+    if (tid > 0 && s_row[tid - 1] == first_row) v = scan[tid - 1] + v;
+    const int s = first_row == 0 ? __ldg(tile_span + 2 * tile) : -1;
+    if (s >= 0)
+      add_partial(span, s, tile, v, partial, tickets, y);
+    else
+      y[r0 + first_row] = v;
+  }
+  // the row the tile leaves open: its partial from this tile
+  if (tid == n_active - 1) {
+    const int s = __ldg(tile_span + 2 * tile + 1);
+    if (s >= 0) add_partial(span, s, tile, scan[tid], partial, tickets, y);
   }
 }
 
 template <typename T>
-int launch_gather(const void* a_vals, const void* a_lidx, const void* a_win,
-                  const void* p1, const void* m1, const void* p2, const void* p3,
-                  const void* touch, int n_sup, int n_splits, int64_t n_cols,
-                  const void* x, void* staging, int64_t staging_numel, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(staging, 0, static_cast<size_t>(staging_numel) * sizeof(T), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = TILE * static_cast<int>(sizeof(T));
-  e = cudaFuncSetAttribute(route_gather_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned grid = static_cast<unsigned>(n_sup) * static_cast<unsigned>(n_splits);
-  route_gather_kernel<T><<<grid, GATHER_THREADS, smem, st>>>(
-      static_cast<const T*>(a_vals), static_cast<const int*>(a_lidx),
-      static_cast<const int*>(a_win), static_cast<const int*>(p1),
-      static_cast<const T*>(m1), static_cast<const int*>(p2),
-      static_cast<const int*>(p3), static_cast<const int*>(touch), n_splits, n_cols,
-      static_cast<const T*>(x), static_cast<T*>(staging));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_reduce(const void* staging, const void* q1, const void* q2, const void* q3,
-                  const void* lpos, const void* ppos, const void* pmask,
-                  const void* segmask, const void* win_lo, const void* win_hi,
-                  int n_ywin, int64_t n_rows, void* y, void* stream) {
-  route_reduce_kernel<T><<<n_ywin, REDUCE_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(staging), static_cast<const int*>(q1),
-      static_cast<const int*>(q2), static_cast<const int*>(q3),
-      static_cast<const int*>(lpos), static_cast<const int*>(ppos),
-      static_cast<const T*>(pmask), static_cast<const T*>(segmask),
-      static_cast<const int*>(win_lo), static_cast<const int*>(win_hi), n_rows,
-      static_cast<T*>(y));
+int launch(const void* row_ptr, const void* cols, const void* vals, const void* starts,
+           const void* tile_span, const void* span, int64_t n_tiles, int tile_items,
+           const void* x, void* y, void* partial, void* tickets, void* stream) {
+  if (n_tiles <= 0 || n_tiles > 0x7fffffff || tile_items < 1 || tile_items > MAX_ITEMS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  route_spmv_kernel<T><<<static_cast<unsigned>(n_tiles), THREADS, smem_bytes<T>(tile_items),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(row_ptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const int64_t*>(starts),
+      static_cast<const int*>(tile_span), static_cast<const int*>(span), tile_items,
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(partial),
+      static_cast<unsigned*>(tickets));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,44 +242,27 @@ const char* smt_route_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// Tables as laid out by RouteStream: a_vals/a_lidx (n_sup*128, 128), a_win
-// (n_sup*128,), p1/m1/p2/p3 (n_sup, n_splits, 128, 128), touch (n_sup,
-// n_splits, 128); staging (staging_numel = (n_regions*128 + 128) * 128).
-int smt_route_gather_f32(const void* a_vals, const void* a_lidx, const void* a_win,
-                         const void* p1, const void* m1, const void* p2, const void* p3,
-                         const void* touch, int n_sup, int n_splits, int64_t n_cols,
-                         const void* x, void* staging, int64_t staging_numel, void* stream) {
-  return launch_gather<float>(a_vals, a_lidx, a_win, p1, m1, p2, p3, touch, n_sup,
-                              n_splits, n_cols, x, staging, staging_numel, stream);
+// row_ptr: (n_rows + 1,) int64; cols: (nnz,) int32; vals: (nnz,) T; starts:
+// (n_tiles + 1, 2) int64, each tile's first (row, entry) and the end;
+// tile_span: (n_tiles, 2) int32, the spanning row open at a tile's start and
+// at its end, or -1; span: (spanning rows, 4) int32 (row, first tile, tile
+// count, first partial slot); partial: (partial slots,) T scratch, or null
+// where no row spans tiles; tickets: (spanning rows,) unsigned, zero at
+// launch and left zero; y: (n_rows,) T, every row written.
+int smt_route_spmv_f32(const void* row_ptr, const void* cols, const void* vals,
+                       const void* starts, const void* tile_span, const void* span,
+                       int64_t n_tiles, int tile_items, const void* x, void* y, void* partial,
+                       void* tickets, void* stream) {
+  return launch<float>(row_ptr, cols, vals, starts, tile_span, span, n_tiles, tile_items, x, y,
+                       partial, tickets, stream);
 }
 
-int smt_route_gather_f64(const void* a_vals, const void* a_lidx, const void* a_win,
-                         const void* p1, const void* m1, const void* p2, const void* p3,
-                         const void* touch, int n_sup, int n_splits, int64_t n_cols,
-                         const void* x, void* staging, int64_t staging_numel, void* stream) {
-  return launch_gather<double>(a_vals, a_lidx, a_win, p1, m1, p2, p3, touch, n_sup,
-                               n_splits, n_cols, x, staging, staging_numel, stream);
-}
-
-// q1/q2/q3/lpos/ppos/pmask/segmask (n_regions, 128, 128); win_lo/win_hi
-// (n_ywin,) int32: window w's staging rows (region*128 + row) are
-// [win_lo[w], win_hi[w]).
-int smt_route_reduce_f32(const void* staging, const void* q1, const void* q2,
-                         const void* q3, const void* lpos, const void* ppos,
-                         const void* pmask, const void* segmask, const void* win_lo,
-                         const void* win_hi, int n_ywin, int64_t n_rows, void* y,
-                         void* stream) {
-  return launch_reduce<float>(staging, q1, q2, q3, lpos, ppos, pmask, segmask, win_lo,
-                              win_hi, n_ywin, n_rows, y, stream);
-}
-
-int smt_route_reduce_f64(const void* staging, const void* q1, const void* q2,
-                         const void* q3, const void* lpos, const void* ppos,
-                         const void* pmask, const void* segmask, const void* win_lo,
-                         const void* win_hi, int n_ywin, int64_t n_rows, void* y,
-                         void* stream) {
-  return launch_reduce<double>(staging, q1, q2, q3, lpos, ppos, pmask, segmask, win_lo,
-                               win_hi, n_ywin, n_rows, y, stream);
+int smt_route_spmv_f64(const void* row_ptr, const void* cols, const void* vals,
+                       const void* starts, const void* tile_span, const void* span,
+                       int64_t n_tiles, int tile_items, const void* x, void* y, void* partial,
+                       void* tickets, void* stream) {
+  return launch<double>(row_ptr, cols, vals, starts, tile_span, span, n_tiles, tile_items, x, y,
+                        partial, tickets, stream);
 }
 
 }  // extern "C"

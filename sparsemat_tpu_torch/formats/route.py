@@ -507,7 +507,7 @@ class RouteStream(SparseFormat):
     def spmv_traffic_bytes(self) -> int:
         """Layout bytes per SpMV: every array the kernels read once (all but
         ``a_rows``), the staging round trip (counted at 4 bytes a slot, as
-        the JAX package counts it), x read once and y written once.  The
-        denominator of the route kernels' GB/s."""
+        the JAX package counts it), x read once and y written once: what
+        the TPU kernels stream (the port's kernel reads the G = 1 plan)."""
         staging = (self.n_regions * REG_ROWS + SUP_ROWS) * LANE * 4
         return super().spmv_traffic_bytes() + 2 * staging

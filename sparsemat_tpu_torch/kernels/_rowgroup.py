@@ -1,9 +1,9 @@
 """The row-group plan shared by the SpMV and SpMM of BSR, WELL, SlabELL
-and SlabPack, and by the SpMV of StripELL and SlabStream: a compact launch
-plan built once per matrix (``plan_of``), the bindings of the two CUDA
-kernels that walk it (``csrc/spmm.cu`` and ``csrc/spmv.cu``, see the notes
-there for what they replace and what bounds them), and plain walks of the
-plan in each kernel's order.
+and SlabPack, and by the SpMV of StripELL, SlabStream and RouteStream: a
+compact launch plan built once per matrix (``plan_of``), the bindings of
+the two CUDA kernels that walk it (``csrc/spmm.cu`` and ``csrc/spmv.cu``,
+see the notes there for what they replace and what bounds them), and plain
+walks of the plan in each kernel's order.
 
 The plan holds exactly the entries the format's own ``to_coo`` counts
 (stored zeros stay, zero blocks and padding slots go), whose row and
@@ -12,8 +12,9 @@ chunks come down to the same plan as any other freeze of the same CSR.
 Rows are cut into groups of G consecutive rows (G ≤ 8, the same for the
 whole matrix); each group keeps one sorted list of the union of its rows'
 columns, and each row one value per union column (zero where it has no
-entry) beside a bit that says whether it has one.  G is chosen per matrix, with no argument, to minimise the bytes one
-column tile of the product reads: the plan's columns, masks and values,
+entry) beside a bit that says whether it has one.  G is chosen per matrix,
+unless the caller names it, to minimise the bytes one column tile of the
+product reads: the plan's columns, masks and values,
 and one 512-byte B slice per union column.  On a dof-blocked FEM operator
 the dof rows of a node share their columns and G comes out at the dof
 count; on a scattered matrix groups of 1 win, which are plain compact
@@ -24,6 +25,12 @@ The SpMV splits the plan's union columns over sub-warps of L lanes
 (``SpmvSplit``, built once per plan): L from the mean union columns per
 group, and a group longer than a segment (2·UNROLL·L union columns) cut
 into segments whose partial sums the last one to finish adds in order.
+
+A RouteStream's plan is built at G = 1, where it is the matrix's CSR
+(``grp_ptr`` the row pointers, ``cols`` and ``vals`` the entries in row
+order), and its SpMV (``csrc/route.cu``, bound in ``kernels/route.py``)
+takes the nnz-balanced split of ``MergeSplit`` instead, whose tiles do not
+depend on how the row lengths spread.
 
 The plan lives beside the format (the frozen layouts stay bit-equal to
 the JAX freezes); its code is plain torch on any device, so the CPU tests
@@ -38,6 +45,7 @@ import torch
 
 from .._build import load_cuda
 from ..formats.bsr import BSR
+from ..formats.route import RouteStream
 from ..types import accum_dtype
 
 #: the largest row group (the kernels' mask is 8 bits)
@@ -50,6 +58,12 @@ _ENTRY_CHUNK = 1 << 28
 UNROLL = 4
 #: the SpMV's sub-warp widths
 LANES = (4, 8, 16, 32)
+#: threads of one tile of the merge-path SpMV (``csrc/route.cu`` THREADS)
+MERGE_THREADS = 256
+#: the most merge items one tile holds (``csrc/route.cu`` MAX_ITEMS), 8 a thread
+MERGE_MAX_ITEMS = 2048
+#: merge items a tile holds unless its split names another count
+MERGE_ITEMS = 1536
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _libs = {}
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -97,6 +111,7 @@ class Plan:
         self.nnz = nnz
         self._cast = {vals.dtype: vals}
         self._spmv = None
+        self._merge = None
 
     @property
     def n_groups(self) -> int:
@@ -122,6 +137,14 @@ class Plan:
         if self._spmv is None:
             self._spmv = SpmvSplit(self)
         return self._spmv
+
+    @property
+    def merge(self) -> "MergeSplit":
+        """The merge-path SpMV's split of a G = 1 plan, built at first use
+        and kept."""
+        if self._merge is None:
+            self._merge = MergeSplit(self)
+        return self._merge
 
     def vals_as(self, dtype: torch.dtype) -> torch.Tensor:
         """The values in ``dtype``, cast once and kept."""
@@ -172,27 +195,101 @@ class SpmvSplit:
         self._scratch = {}
 
     def scratch(self, stream, dtype: torch.dtype):
-        """(partial, tickets) of launches on ``stream`` in ``dtype``, made
-        once and kept (the launches of one stream run in order): the slots
-        of the partial sums (None where no group has several segments),
-        and the (n_multi,) int32 arrival counters of the groups of several
-        segments, zeroed once, since the kernel's last segment of a group
-        resets its counter."""
-        key = (stream.cuda_stream, dtype)
-        if key not in self._scratch:
-            dev = self.seg_ptr.device
-            partial = torch.empty(self.n_partial * self.group, dtype=dtype, device=dev) \
-                if self.n_partial else None
-            self._scratch[key] = (partial, torch.zeros(max(self.n_multi, 1), dtype=torch.int32,
-                                                       device=dev))
-        return self._scratch[key]
+        """(partial, tickets) of launches on ``stream`` in ``dtype``: the
+        slots of the partial sums (None where no group has several
+        segments) and the arrival counters of the groups of several
+        segments (``_scratch``)."""
+        return _scratch(self._scratch, stream, dtype, self.n_partial * self.group,
+                        self.n_multi, self.seg_ptr.device)
 
 
-def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape) -> Plan:
+class MergeSplit:
+    """The merge-path SpMV's work over a G = 1 plan (Merrill & Garland,
+    "Merge-based Parallel Sparse Matrix-Vector Multiplication", SC16).  The
+    merge of the n_rows row ends with the nnz entries (a row's end after
+    its last entry, n_rows + nnz items) is cut into tiles of ``items``
+    items, one CTA each, and a tile into runs of ``ipt`` = ⌈items /
+    MERGE_THREADS⌉ items, one thread each, so no CTA or thread holds more
+    work than another, however the row lengths spread.  ``starts``
+    (n_tiles + 1, 2) int64: the (row, entry) coordinate of each tile's
+    first item, and of the end, where the diagonal search puts them (the
+    row ends and entries before that item); ``spans`` (n_span, 4) int32:
+    rows (row, first tile, tile count, first partial slot) of the rows
+    whose items lie in more than one tile; ``tile_span`` (n_tiles, 2)
+    int32: the span of the row a tile finds open at its start (begun in an
+    earlier tile) and of the row it leaves open at its end, -1 where none.
+    Static per matrix: the kernel loads its tile's bounds and searches
+    nothing across tiles."""
+
+    def __init__(self, plan: Plan, items: int | None = None):
+        if plan.group != 1:
+            raise ValueError(f"merge-path SpMV: the plan has groups of {plan.group} rows, "
+                             f"it needs 1")
+        items = items or MERGE_ITEMS
+        if not 1 <= items <= MERGE_MAX_ITEMS:
+            raise ValueError(f"merge-path SpMV: {items} items a tile, the kernel takes "
+                             f"1 to {MERGE_MAX_ITEMS}")
+        dev = plan.grp_ptr.device
+        n_rows, nnz = plan.n_groups, plan.n_union
+        total = n_rows + nnz
+        self.items, self.ipt = items, -(-items // MERGE_THREADS)
+        self.n_tiles = -(-total // items)
+        rows = torch.arange(n_rows, device=dev)
+        end = plan.grp_ptr[1:] + rows            # merge position of each row's end
+        first = plan.grp_ptr[:-1] + rows         # of its first item (its end if empty)
+        diag = torch.clamp(torch.arange(self.n_tiles + 1, device=dev) * items, max=total)
+        row = torch.searchsorted(end, diag)      # the diagonal search: row ends before d
+        self.starts = torch.stack([row, diag - row], 1)
+        t_first, t_last = first // items, end // items
+        multi = t_last > t_first
+        span_id = torch.cumsum(multi.long(), 0) - 1
+        count = (t_last - t_first + 1)[multi]
+        self.spans = torch.stack([torch.nonzero(multi).flatten(), t_first[multi], count,
+                                  torch.cumsum(count, 0) - count], 1).to(torch.int32)
+        self.n_span = int(self.spans.shape[0])
+        self.n_partial = int(count.sum())
+        self.longest = int(count.max()) if self.n_span else 0
+        tile = torch.arange(self.n_tiles, device=dev)
+        r0 = row[:-1].clamp(max=max(n_rows - 1, 0))     # the row open at a tile's start
+        r1 = row[1:].clamp(max=max(n_rows - 1, 0))      # and at its end
+        open0 = (row[:-1] < n_rows) & (t_first[r0] < tile)
+        open1 = (row[1:] < n_rows) & (first[r1] < diag[1:])
+        self.tile_span = torch.stack([torch.where(open0, span_id[r0], -1),
+                                      torch.where(open1, span_id[r1], -1)], 1).to(torch.int32)
+        if max(n_rows, self.n_tiles, self.n_partial) >= 1 << 31:
+            raise ValueError("merge-path SpMV: more than 2^31 rows, tiles or partials")
+        self._scratch = {}
+
+    def scratch(self, stream, dtype: torch.dtype):
+        """(partial, tickets) of launches on ``stream`` in ``dtype``: one
+        partial slot per (spanning row, tile), and one arrival counter per
+        spanning row (``_scratch``)."""
+        return _scratch(self._scratch, stream, dtype, self.n_partial, self.n_span,
+                        self.starts.device)
+
+
+def _scratch(store: dict, stream, dtype: torch.dtype, n_partial: int, n_tickets: int, dev):
+    """(partial, tickets) of a split's launches on ``stream`` in ``dtype``,
+    made once and kept in ``store`` (the launches of one stream run in
+    order): ``n_partial`` slots for the partial sums (None where there are
+    none), and ``n_tickets`` int32 arrival counters, zeroed once, since the
+    kernel's last arrival resets its counter."""
+    key = (stream.cuda_stream, dtype)
+    if key not in store:
+        partial = torch.empty(n_partial, dtype=dtype, device=dev) if n_partial else None
+        store[key] = (partial, torch.zeros(max(n_tickets, 1), dtype=torch.int32, device=dev))
+    return store[key]
+
+
+def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape,
+          group: int | None = None) -> Plan:
     """The plan of the entries (rows, cols, vals), in any order, on their
-    device; entries outside the matrix are dropped (a padding slot of
-    ``to_coo`` is one) before the indices are widened to int64, so a
-    padded layout's slots never take 16 bytes each."""
+    device, at groups of ``group`` rows (None: the G that minimises the
+    SpMM's tile bytes); entries outside the matrix are dropped (a padding
+    slot of ``to_coo`` is one) before the indices are widened to int64, so
+    a padded layout's slots never take 16 bytes each."""
+    if group is not None and not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"row-group plan: groups of {group} rows, not 1 to {MAX_GROUP}")
     n_rows, n_cols = (int(s) for s in shape)
     dev = vals.device
     vdt = accum_dtype(vals.dtype)
@@ -222,7 +319,8 @@ def build(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, shape) -> 
         column, mask and g values, and a B slice (ties go to the smaller g)."""
         return torch.unique(slot_key(g)).numel() * (4 + 1 + g * vdt.itemsize + _TILE_BYTES), g
 
-    group = min(range(1, min(MAX_GROUP, max(n_rows, 1)) + 1), key=tile_bytes)
+    if group is None:
+        group = min(range(1, min(MAX_GROUP, max(n_rows, 1)) + 1), key=tile_bytes)
 
     uniq, slot = torch.unique(slot_key(group), sorted=True, return_inverse=True)
     n_groups = -(-n_rows // group)
@@ -260,11 +358,11 @@ def bsr_entries(bsr: BSR):
 
 def plan_of(mat, check=None) -> Plan:
     """The plan of a BSR, WELL, SlabELL, SlabPack (every part and every
-    overflow level in one), StripELL (every class part) or SlabStream,
-    shared by its SpMV and SpMM: built on the matrix's device at first use
-    (a BSR's entries from its blocks, the others' from ``to_coo``), after
-    ``check(mat)`` where one is given, and cached on it (a frozen matrix's
-    layout and values never change)."""
+    overflow level in one), StripELL (every class part), SlabStream or
+    RouteStream (at G = 1: its CSR), shared by its SpMV and SpMM: built on
+    the matrix's device at first use (a BSR's entries from its blocks, the
+    others' from ``to_coo``), after ``check(mat)`` where one is given, and
+    cached on it (a frozen matrix's layout and values never change)."""
     plan = mat.__dict__.get("_rowgroup_plan")
     if plan is None:
         if check is not None:
@@ -274,7 +372,7 @@ def plan_of(mat, check=None) -> Plan:
         else:
             coo = mat.to_coo()
             entries = (coo.rows, coo.cols, coo.vals)
-        plan = build(*entries, mat.shape)
+        plan = build(*entries, mat.shape, group=1 if isinstance(mat, RouteStream) else None)
         object.__setattr__(mat, "_rowgroup_plan", plan)
     return plan
 

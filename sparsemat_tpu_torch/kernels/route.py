@@ -1,20 +1,30 @@
-"""RouteStream SpMV: the two CUDA kernels' wrappers, their plain versions
-and launch counters (counterpart of ``sparsemat_tpu/kernels/route.py``).
+"""RouteStream SpMV: the CUDA kernel's wrapper, its plain versions and
+launch counter (counterpart of ``sparsemat_tpu/kernels/route.py``).
 
-The SpMV is two launches, as on the TPU: ``route_gather`` (products routed
-into the staging buffer) and ``route_reduce`` (staging segments summed into
-y).  The CUDA kernels live in ``csrc/route.cu`` (see the note there for
-what they replace and what bounds them).  The plain versions replay the
-JAX package's table semantics (``route_spmv_xla``) with tensor ops,
-vectorised over supertiles and regions where the JAX package scans, so the
-kernels and the plain versions are independent.
+The TPU's SpMV is two kernels over the freeze's routing tables (gather into
+a staging buffer, then reduce).  The port's is one launch of the merge-path
+CSR SpMV (``csrc/route.cu``, see the note there for what it replaces and
+what bounds it) over the matrix's compact plan at G = 1
+(``kernels/_rowgroup.py`` ``plan_of``: the CSR of ``to_coo``, padding
+dropped, built on the matrix's device at first use and cached on it), cut
+into nnz-balanced tiles by ``_rowgroup.MergeSplit`` (built once per plan).
+The routing tables stay in the format, bit-equal to the JAX freeze, and the
+kernel reads none of them.
 
-Dtypes: the values and the float tables (``m1``, ``pmask``, ``segmask``)
-are cast to the accumulation dtype of values and x (bf16/f16 to f32) before
-the launch; the kernels run in f32 or f64.  A wrapper takes the plain
+The plain versions replay the JAX package's table semantics
+(``route_spmv_xla``) in two halves, ``route_gather_ref`` and
+``route_reduce_ref``, with tensor ops vectorised over supertiles and
+regions where the JAX package scans, so the kernel and its plain version
+are independent.  ``route_spmv_walk`` is the kernel's arithmetic in its
+order, in plain torch, for the tests.
+
+Dtypes: the values and x are computed in the accumulation dtype of the two
+(bf16/f16 in f32); the kernel runs in f32 or f64.  One difference from the
+plain versions: the kernel reads no padding slot, so where x holds inf or
+NaN it gives what a CSR SpMV gives (scipy, ``torch.mv``), not a slot's
+0·inf = NaN; for a finite x they agree.  The wrapper takes the plain
 version only when its tensors lie on the CPU; on a CUDA tensor it launches
-its kernel or raises.  The layout is checked once per matrix, and the
-launch plan cached on it (``_plan``).
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,20 +35,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..formats.route import ARRAYS, FLOAT_ARRAYS, LANE, REG_ROWS, SUP_ROWS, RouteStream
+from ..formats.route import ARRAYS, LANE, REG_ROWS, SUP_ROWS, RouteStream
 from ..types import FLOAT_DTYPES, accum_dtype
 from .._build import load_cuda
+from . import _rowgroup
 
-#: kernel launches (plain versions do not count)
-LAUNCHES = {"route_gather": 0, "route_reduce": 0}
+#: kernel launches (the plain versions do not count)
+LAUNCHES = {"route_spmv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES["route_spmv"] = 0
 
 
 def _kernels() -> ctypes.CDLL:
@@ -46,23 +56,20 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = load_cuda("route")
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        vp = ctypes.c_void_p
         for s in _SUFFIX.values():
-            fn = getattr(lib, f"smt_route_gather_{s}")
-            fn.argtypes = [vp] * 8 + [i32, i32, i64, vp, vp, i64, vp]
-            fn.restype = i32
-            fn = getattr(lib, f"smt_route_reduce_{s}")
-            fn.argtypes = [vp] * 10 + [i32, i64, vp, vp]
-            fn.restype = i32
-        lib.smt_route_error_string.argtypes = [i32]
+            fn = getattr(lib, f"smt_route_spmv_{s}")
+            fn.argtypes = [vp] * 6 + [ctypes.c_int64, ctypes.c_int] + [vp] * 5
+            fn.restype = ctypes.c_int
+        lib.smt_route_error_string.argtypes = [ctypes.c_int]
         lib.smt_route_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
 def staging_rows(rs: RouteStream) -> int:
-    """Rows of the staging buffer: the regions' rows plus one spare region
-    that unused ``touch`` entries name."""
+    """Rows of the plain versions' staging buffer: the regions' rows plus
+    one spare region that unused ``touch`` entries name."""
     return rs.n_regions * REG_ROWS + SUP_ROWS
 
 
@@ -120,11 +127,12 @@ def route_spmv_ref(rs: RouteStream, x: torch.Tensor) -> torch.Tensor:
     return route_reduce_ref(rs, route_gather_ref(rs, x))
 
 
-# --- the layout's invariants (the kernels rely on them) --------------------------
+# --- the layout's invariants (the freeze gives them) ---------------------------
 
 def slot_owners(rs: RouteStream) -> np.ndarray:
     """The staging slot (row·128 + lane) that each real product of the
-    gather lands on, from the host tables: for arrival slot (j, l) of each
+    gather lands on, from the host tables; the freeze gives every real
+    product a slot of its own: for arrival slot (j, l) of each
     (supertile, split), colour c = p3[j, l], source row s = p2[c, j], and the
     slot is real where m1[s, c] ≠ 0."""
     p1, m1, p2, p3 = (rs.host(k) for k in ("p1", "m1", "p2", "p3"))
@@ -143,9 +151,10 @@ def slot_owners(rs: RouteStream) -> np.ndarray:
 
 def window_rows(rs: RouteStream) -> np.ndarray:
     """(2, n_ywin) int32: the staging rows (region·128 + row, in reduce
-    layout) of y window w are [lo[w], hi[w]) (empty where lo == hi).
-    Raises where one window's rows are not contiguous or the windows are
-    out of order."""
+    layout) of y window w are [lo[w], hi[w]) (empty where lo == hi); the
+    freeze gives each window contiguous rows, in window order.  Raises
+    where one window's rows are not contiguous or the windows are out of
+    order."""
     n_ywin = rs.y_windows()
     wrow = rs.host("wrow").reshape(-1).astype(np.int64)
     g = np.nonzero(wrow != n_ywin)[0]
@@ -153,8 +162,7 @@ def window_rows(rs: RouteStream) -> np.ndarray:
     if w.size and (w.min() < 0 or w.max() > n_ywin):
         raise ValueError("route: wrow names a window outside the matrix")
     if np.any(np.diff(w) < 0) or np.any(np.diff(g)[np.diff(w) == 0] != 1):
-        raise ValueError("route_reduce: a y window's staging rows are not "
-                         "contiguous; the kernel sums each window's rows in one pass")
+        raise ValueError("route: a y window's staging rows are not contiguous")
     lo = np.zeros(n_ywin, np.int64)
     hi = np.zeros(n_ywin, np.int64)
     if w.size:
@@ -165,156 +173,132 @@ def window_rows(rs: RouteStream) -> np.ndarray:
     return np.stack([lo, hi]).astype(np.int32)
 
 
+# --- the kernel ------------------------------------------------------------------
+
 def _check_layout(rs: RouteStream) -> None:
-    """Raise on a RouteStream the kernels do not take: arrays on several or
-    non-CUDA devices, wrong dtypes or shapes, table entries out of range, or
-    a staging slot that two real products share (the gather stores each
-    product, it does not add)."""
+    """The arrays the plan is built from on one CUDA device, and float
+    values: checked once per matrix, when its plan is built."""
     dev = rs.a_vals.device
-    ts = {k: getattr(rs, k) for k in ARRAYS}
-    if dev.type != "cuda" or any(t.device != dev for t in ts.values()):
-        raise ValueError(f"route: the kernels need every array on one CUDA device, got {dev}")
+    if dev.type != "cuda" or any(getattr(rs, k).device != dev for k in ARRAYS):
+        raise ValueError(f"route_spmv: the kernel needs every array on one CUDA device, "
+                         f"got {dev}")
     if rs.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"route: the CUDA kernels take float values, got {rs.dtype}")
-    if any(ts[k].dtype != rs.dtype for k in FLOAT_ARRAYS):
-        raise TypeError("route: m1, pmask and segmask must have the values' dtype")
-    if any(ts[k].dtype != torch.int32 for k in ARRAYS if k not in FLOAT_ARRAYS):
-        raise TypeError("route: the index tables must be int32")
-    if not all(t.is_contiguous() for t in ts.values()):
-        raise ValueError("route: the kernels need contiguous arrays")
-    n_sup, n_spl, n_reg = rs.n_sup, rs.n_splits, rs.n_regions
-    want = {"a_vals": (n_sup * SUP_ROWS, LANE), "a_lidx": (n_sup * SUP_ROWS, LANE),
-            "a_win": (n_sup * SUP_ROWS,), "a_rows": (n_sup * SUP_ROWS, LANE),
-            "touch": (n_sup, n_spl, SUP_ROWS), "wrow": (n_reg, REG_ROWS)}
-    want.update({k: (n_sup, n_spl, SUP_ROWS, LANE) for k in ("p1", "m1", "p2", "p3")})
-    want.update({k: (n_reg, REG_ROWS, LANE)
-                 for k in ("q1", "q2", "q3", "lpos", "ppos", "pmask", "segmask")})
-    for k, shp in want.items():
-        if tuple(ts[k].shape) != shp:
-            raise ValueError(f"route: {k} has shape {tuple(ts[k].shape)}, the layout "
-                             f"needs {shp}")
-    for k in ("a_lidx", "p1", "p2", "p3", "q1", "q2", "q3", "lpos", "ppos"):
-        h = rs.host(k)
-        if h.size and (h.min() < 0 or h.max() >= LANE):
-            raise ValueError(f"route: {k} holds a lane outside [0, 128)")
-    touch = rs.host("touch")
-    if touch.min() < 0 or touch.max() >= staging_rows(rs):
-        raise ValueError("route: touch names a row outside the staging buffer")
-    if rs.host("a_win").min() < 0:
-        raise ValueError("route: a_win holds a negative window")
-    owners = slot_owners(rs)
-    if np.unique(owners).size != owners.size:
-        raise ValueError("route_gather: two real products share a staging slot")
+        raise TypeError(f"route_spmv: the CUDA kernel takes float values, got {rs.dtype}")
 
 
-class _Plan:
-    """What the launches need besides x, built once per matrix after its
-    layout is checked: each window's staging-row bounds on the device, and
-    the float arrays cast to each accumulation dtype met so far."""
-
-    def __init__(self, rs: RouteStream):
-        _check_layout(rs)
-        bounds = window_rows(rs)
-        dev = rs.a_vals.device
-        self.win_lo = torch.from_numpy(bounds[0]).to(dev)
-        self.win_hi = torch.from_numpy(bounds[1]).to(dev)
-        self._floats = {rs.dtype: {k: getattr(rs, k) for k in FLOAT_ARRAYS}}
-
-    def floats(self, rs: RouteStream, adt: torch.dtype) -> dict:
-        """a_vals, m1, pmask and segmask in ``adt`` (cast once, then kept)."""
-        if adt not in self._floats:
-            self._floats[adt] = {k: getattr(rs, k).to(adt).contiguous()
-                                 for k in FLOAT_ARRAYS}
-        return self._floats[adt]
-
-
-def _plan(rs: RouteStream) -> _Plan:
-    """The matrix's launch plan, cached on it (a frozen matrix's layout and
-    values never change)."""
-    plan = rs.__dict__.get("_route_plan")
-    if plan is None:
-        plan = _Plan(rs)
-        object.__setattr__(rs, "_route_plan", plan)
-    return plan
-
-
-def _on_cpu(rs: RouteStream, t: torch.Tensor) -> bool:
-    return t.device.type == "cpu" and rs.a_vals.device.type == "cpu"
-
-
-def _check_operand(rs: RouteStream, t: torch.Tensor, what: str) -> None:
-    if t.device != rs.a_vals.device:
-        raise ValueError(f"{what}: matrix on {rs.a_vals.device} and operand on "
-                         f"{t.device}; the kernel needs both on one CUDA device")
-    if t.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"{what}: the CUDA kernel takes a float operand, got {t.dtype}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _kernels().smt_route_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
-
-def route_gather(rs: RouteStream, x: torch.Tensor) -> torch.Tensor:
-    """The staging buffer of ``route_gather_ref``.  CUDA: one launch of
-    ``route_gather_kernel`` (after zeroing the buffer on the stream); the
-    spare rows past the regions stay zero.  CPU: the plain version."""
-    if _on_cpu(rs, x):
-        return route_gather_ref(rs, x)
-    plan = _plan(rs)
-    _check_operand(rs, x, "route_gather")
-    if x.dim() != 1 or x.shape[0] != rs.shape[1]:
-        raise ValueError(f"route_gather: vector of shape {tuple(x.shape)} for a "
-                         f"{rs.shape} matrix")
-    adt = _adt(rs, x)
-    x = x.to(adt).contiguous()
-    fl = plan.floats(rs, adt)
-    staging = torch.empty(staging_rows(rs), LANE, dtype=adt, device=x.device)
+def launch(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through ``route_spmv_kernel`` over ``split`` of the G = 1
+    ``plan``, one launch (counted in ``LAUNCHES``); x (n_cols,) on the
+    plan's CUDA device.  bf16/f16 values and x are computed in f32."""
+    n_rows = plan.shape[0]
+    adt = accum_dtype(torch.promote_types(plan.vals.dtype, x.dtype))
+    vals = plan.vals_as(adt)
+    xc = x.to(adt).contiguous()
+    y = torch.empty(n_rows, dtype=adt, device=x.device)
+    if n_rows == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device)
+    partial, tickets = split.scratch(stream, adt)
     lib = _kernels()
     with torch.cuda.device(x.device):
-        rc = getattr(lib, f"smt_route_gather_{_SUFFIX[adt]}")(
-            fl["a_vals"].data_ptr(), rs.a_lidx.data_ptr(), rs.a_win.data_ptr(),
-            rs.p1.data_ptr(), fl["m1"].data_ptr(), rs.p2.data_ptr(), rs.p3.data_ptr(),
-            rs.touch.data_ptr(), rs.n_sup, rs.n_splits, rs.shape[1], x.data_ptr(),
-            staging.data_ptr(), staging.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "route_gather")
-    LAUNCHES["route_gather"] += 1
-    return staging
-
-
-def route_reduce(rs: RouteStream, staging: torch.Tensor) -> torch.Tensor:
-    """y = the segment sums of ``staging`` (``route_reduce_ref``).  CUDA:
-    one launch of ``route_reduce_kernel``, one CTA per y window summing its
-    staging rows in order; CPU: the plain version."""
-    if _on_cpu(rs, staging):
-        return route_reduce_ref(rs, staging)
-    plan = _plan(rs)
-    _check_operand(rs, staging, "route_reduce")
-    adt = staging.dtype
-    if adt not in _SUFFIX:
-        raise TypeError(f"route_reduce: staging must be f32 or f64, got {adt}")
-    if tuple(staging.shape) != (staging_rows(rs), LANE) or not staging.is_contiguous():
-        raise ValueError(f"route_reduce: staging of shape {tuple(staging.shape)}, the "
-                         f"layout needs a contiguous ({staging_rows(rs)}, {LANE})")
-    fl = plan.floats(rs, adt)
-    n_rows = rs.shape[0]
-    y = torch.empty(n_rows, dtype=adt, device=staging.device)
-    lib = _kernels()
-    with torch.cuda.device(staging.device):
-        rc = getattr(lib, f"smt_route_reduce_{_SUFFIX[adt]}")(
-            staging.data_ptr(), rs.q1.data_ptr(), rs.q2.data_ptr(), rs.q3.data_ptr(),
-            rs.lpos.data_ptr(), rs.ppos.data_ptr(), fl["pmask"].data_ptr(),
-            fl["segmask"].data_ptr(), plan.win_lo.data_ptr(), plan.win_hi.data_ptr(),
-            rs.y_windows(), n_rows, y.data_ptr(),
-            torch.cuda.current_stream(staging.device).cuda_stream)
-    _raise_on(rc, "route_reduce")
-    LAUNCHES["route_reduce"] += 1
+        rc = getattr(lib, f"smt_route_spmv_{_SUFFIX[adt]}")(
+            plan.grp_ptr.data_ptr(), plan.cols.data_ptr(), vals.data_ptr(),
+            split.starts.data_ptr(), split.tile_span.data_ptr(), split.spans.data_ptr(),
+            split.n_tiles, split.items, xc.data_ptr(), y.data_ptr(),
+            partial.data_ptr() if partial is not None else None, tickets.data_ptr(),
+            stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"route_spmv: CUDA error {rc} "
+                           f"({lib.smt_route_error_string(rc).decode()})")
+    LAUNCHES["route_spmv"] += 1
     return y
 
 
 def route_spmv(rs: RouteStream, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x.  CUDA: ``route_gather`` then ``route_reduce`` (two
-    launches); CPU: the plain version."""
-    return route_reduce(rs, route_gather(rs, x))
+    """y = A @ x.  CUDA: one launch of ``route_spmv_kernel`` over the
+    matrix's G = 1 plan and its merge split; CPU: the plain version."""
+    if rs.a_vals.device.type == "cpu" and x.device.type == "cpu":
+        return route_spmv_ref(rs, x)
+    if x.device != rs.a_vals.device:
+        raise ValueError(f"route_spmv: matrix on {rs.a_vals.device} and vector on {x.device}; "
+                         f"the kernel needs both on one CUDA device")
+    if x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"route_spmv: the CUDA kernel takes a float vector, got {x.dtype}")
+    if x.dim() != 1 or x.shape[0] != rs.shape[1]:
+        raise ValueError(f"route_spmv: vector of shape {tuple(x.shape)} for a "
+                         f"{rs.shape} matrix")
+    plan = _rowgroup.plan_of(rs, _check_layout)
+    return launch(plan, plan.merge, x)
+
+
+# --- the kernel's order, in plain torch (for the tests) -----------------------------
+
+def route_spmv_walk(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit,
+                    x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x by ``route_spmv_kernel``'s arithmetic in its order, in
+    plain torch, over ``split`` of the G = 1 ``plan``: each product
+    rounded, each thread's run of merge items summed from 0 in order, the
+    open sums scanned Hillis-Steele by key, the first row a thread closes
+    given the scan of the thread before, and a spanning row's per-tile
+    partials added from 0 in tile order."""
+    adt = accum_dtype(torch.promote_types(plan.vals.dtype, x.dtype))
+    dev = x.device
+    n_rows, nnz = plan.n_groups, plan.n_union
+    y = torch.zeros(plan.shape[0], dtype=adt, device=dev)
+    if split.n_tiles == 0:
+        return y
+    prod = torch.cat([plan.vals[0].to(adt) * x.to(adt)[plan.cols.long()],
+                      torch.zeros(1, dtype=adt, device=dev)])
+    end = plan.grp_ptr[1:]
+    ipt = split.ipt
+    n_thr = -(-split.items // ipt)                     # threads of a full tile that hold items
+    d0 = split.starts[:-1].sum(1)
+    d1 = split.starts[1:].sum(1)
+    u = torch.arange(n_thr, device=dev)
+    d = torch.minimum(d0[:, None] + u * ipt, d1[:, None])       # (n_tiles, n_thr)
+    d_end = torch.minimum(d + ipt, d1[:, None])
+    i = torch.searchsorted(end + torch.arange(n_rows, device=dev), d)
+    j = d - i
+    run = torch.zeros(d.shape, dtype=adt, device=dev)
+    first_sum = torch.zeros_like(run)
+    first_row = torch.full(d.shape, -1, dtype=torch.int64, device=dev)
+    for k in range(ipt):
+        live = d + k < d_end
+        closes = live & (i < n_rows) & (end[i.clamp(max=max(n_rows - 1, 0))] <= j)
+        adds = live & ~closes
+        later = closes & (first_row >= 0)
+        y[i[later]] = run[later]
+        first = closes & (first_row < 0)
+        first_sum = torch.where(first, run, first_sum)
+        first_row = torch.where(first, i, first_row)
+        run = torch.where(closes, torch.zeros_like(run), run)
+        run = torch.where(adds, run + prod[j.clamp(max=nnz)], run)
+        i, j = i + closes, j + adds
+    off = 1
+    while off < n_thr:                                  # the segmented scan
+        back = (u - off).clamp(min=0)
+        same = (u >= off) & (i[:, back] == i)
+        run = torch.where(same, run[:, back] + run, run)
+        off <<= 1
+    back = (u - 1).clamp(min=0)
+    v = torch.where((u > 0) & (i[:, back] == first_row), run[:, back] + first_sum, first_sum)
+    tile = torch.arange(split.n_tiles, device=dev)[:, None].expand(d.shape)
+    span0 = split.tile_span[:, 0].long()[:, None].expand(d.shape)
+    to_part = (first_row >= 0) & (first_row == split.starts[:-1, 0][:, None]) & (span0 >= 0)
+    direct = (first_row >= 0) & ~to_part
+    y[first_row[direct]] = v[direct]
+    spans = split.spans.long()
+    partial = torch.zeros(split.n_partial, dtype=adt, device=dev)
+    s = span0[to_part]
+    partial[spans[s, 3] + tile[to_part] - spans[s, 1]] = v[to_part]
+    last = -(-(d1 - d0) // ipt) - 1                     # the last thread that holds items
+    s1 = split.tile_span[:, 1].long()
+    on = s1 >= 0
+    partial[spans[s1[on], 3] + tile[on, 0] - spans[s1[on], 1]] = \
+        run[tile[on, 0], last[on]]
+    sums = torch.zeros(split.n_span, dtype=adt, device=dev)
+    for k in range(split.longest):
+        on = spans[:, 2] > k
+        sums[on] = sums[on] + partial[spans[on, 3] + k]
+    y[spans[:, 0]] = sums
+    return y

@@ -2,8 +2,8 @@
 ``sparsemat_tpu/ops/matvec.py``).
 
 Dispatch by format, in the JAX package's order: DIA goes to the DIA kernels
-(``kernels/dia.py``), RouteStream to the two route kernels
-(``kernels/route.py``); StripELL (``kernels/strip.py``), SlabStream, SlabPack
+(``kernels/dia.py``), RouteStream to the merge-path SpMV over its G = 1
+plan (``kernels/route.py``); StripELL (``kernels/strip.py``), SlabStream, SlabPack
 and SlabELL (``kernels/slab.py``) and WELL (and any matrix under
 ``method='pallas'``, ``kernels/well.py``) to the row-group SpMV over the
 matrix's compact plan (``kernels/_rowgroup.py``), and, for SpMM, BSR

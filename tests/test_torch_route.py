@@ -2,9 +2,12 @@
 freeze gives the same 17 arrays bit for bit (it is the same host numpy
 program), the edge colouring is the same and proper, the plain versions
 match ``route_spmv_xla`` and the Pallas kernels in interpret mode, the
-layout holds the invariants the CUDA kernels rely on, and the whole
+layout holds the invariants the freeze gives (one real product per staging
+slot, each y window's staging rows contiguous), and the whole
 scattered-matrix slice (MatrixMarket → RouteStream → solvers) agrees with
-the JAX package's.  On a CUDA card, each kernel matches its plain version.
+the JAX package's.  On a CUDA card, the merge-path kernel matches its
+plain version and, bitwise, the walk of its plan
+(``tests/test_torch_route_merge.py`` holds the walk to the JAX package).
 
 Tolerances: relative to max|reference|, 1e-5 in f32 (the plain reduce
 takes its prefix sum as a matrix product, whose summation order differs
@@ -25,6 +28,7 @@ from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch import matgen, solvers
 from sparsemat_tpu_torch.formats import route as troute
 from sparsemat_tpu_torch.interop import from_reference
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import route as kr
 
 ARRAYS = troute.ARRAYS
@@ -208,13 +212,14 @@ def test_low_precision_values_match_xla_oracle(dtype):
     assert rel_err(got, want) < 1e-5
 
 
-# -- the invariants the CUDA kernels rely on ---------------------------------------
+# -- the invariants the freeze gives ------------------------------------------------
 
 def replay_cuda_design(rs, x):
-    """What ``csrc/route.cu`` computes, step for step, in numpy (f64):
-    each real product STORED into its staging slot (composed gather, no
-    addition), then per y window its staging rows in order, each lane
-    summing its segment directly, over 8 warps' rows added in warp order."""
+    """A gather/reduce pair that leans on the freeze's two invariants, step
+    for step, in numpy (f64): each real product STORED into its staging
+    slot (composed gather, no addition), then per y window its staging rows
+    in order, each lane summing its segment directly, over 8 warps' rows
+    added in warp order."""
     h = {k: rs.host(k).astype(np.float64 if k in troute.FLOAT_ARRAYS else np.int64)
          for k in ARRAYS}
     n_rows, n_cols = rs.shape
@@ -361,11 +366,11 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     rs = tsm.CSR.from_scipy(MATRICES["n300"]()).to_route()
     x = torch.randn(300)
     kr.reset_launches()
-    st = kr.route_gather(rs, x)
-    assert torch.equal(st, kr.route_gather_ref(rs, x))
-    assert torch.equal(kr.route_reduce(rs, st), kr.route_reduce_ref(rs, st))
-    assert torch.equal(kr.route_spmv(rs, x), kr.route_spmv_ref(rs, x))
-    assert kr.LAUNCHES == {"route_gather": 0, "route_reduce": 0}
+    y = kr.route_spmv(rs, x)
+    assert torch.equal(y, kr.route_spmv_ref(rs, x))
+    assert torch.equal(tsm.spmv(rs, x), y)
+    assert kr.LAUNCHES == {"route_spmv": 0}
+    assert "_rowgroup_plan" not in rs.__dict__          # the plain version builds no plan
 
 
 # -- the slice: MatrixMarket → RouteStream → solvers, in both packages --------------
@@ -429,7 +434,7 @@ def test_circuit_slice_through_both_packages(dtype, tmp_path):
             assert rel_err(xt, xj) < 1e-4, name
 
 
-# -- the CUDA kernels against their plain versions (needs a card) ------------------
+# -- the CUDA kernel against its plain version and its walk (needs a card) -------
 
 @pytest.fixture
 def cuda():
@@ -445,23 +450,26 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("name", MATRICES)
 def test_cuda_kernels_match_plain(cuda, dtype, name):
+    """One launch per SpMV; the kernel against the plain table halves, and
+    bitwise against the walk of its split at the default tile and at tiles
+    of 8 and 16 items; reruns bitwise."""
     m = MATRICES[name]()
     rs = tsm.CSR.from_scipy(m, device=cuda).to_route().astype(dtype)
     x = torch.randn(m.shape[1], device=cuda)
     x = x.to(dtype) if dtype != torch.bfloat16 else x
     kr.reset_launches()
-    staging = kr.route_gather(rs, x)
-    y = kr.route_reduce(rs, staging)
+    y = kr.route_spmv(rs, x)
     torch.cuda.synchronize()
-    assert kr.LAUNCHES == {"route_gather": 1, "route_reduce": 1}
-    n = rs.n_regions * 128
-    staging_ref = kr.route_gather_ref(rs, x)
-    assert rel_err(staging[:n].cpu(), staging_ref[:n].cpu()) < TOL[dtype]
-    assert rel_err(kr.route_reduce(rs, staging_ref).cpu(),
-                   kr.route_reduce_ref(rs, staging_ref).cpu()) < TOL[dtype]
+    assert kr.LAUNCHES == {"route_spmv": 1}
     y_ref = kr.route_spmv_ref(rs, x)
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
+    plan = rg.plan_of(rs)
+    assert plan.group == 1
+    for split in (plan.merge, rg.MergeSplit(plan, 8), rg.MergeSplit(plan, 16)):
+        got = y if split is plan.merge else kr.launch(plan, split, x)
+        assert torch.equal(got, kr.route_spmv_walk(plan, split, x)), split.items
+        assert rel_err(got.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(kr.route_spmv(rs, x), y)            # reruns bitwise
 
 
@@ -469,10 +477,12 @@ def test_cuda_kernels_match_plain(cuda, dtype, name):
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     rs = tsm.CSR.from_scipy(MATRICES["n300"](), device=cuda).to_route()
     with pytest.raises(ValueError):
-        kr.route_gather(rs, torch.zeros(300))                  # vector on the CPU
+        kr.route_spmv(rs, torch.zeros(300))                    # vector on the CPU
     with pytest.raises(ValueError):
-        kr.route_gather(rs, torch.zeros(301, device=cuda))     # wrong length
+        kr.route_spmv(rs, torch.zeros(301, device=cuda))       # wrong length
     with pytest.raises(TypeError):
-        kr.route_gather(rs, torch.zeros(300, dtype=torch.int32, device=cuda))
+        kr.route_spmv(rs, torch.zeros(300, dtype=torch.int32, device=cuda))
+    kr.reset_launches()
     with pytest.raises(ValueError):
-        kr.route_reduce(rs, torch.zeros(5, 128, device=cuda))  # wrong staging shape
+        kr.route_spmv(rs, torch.zeros(2, 150, device=cuda))    # not a vector
+    assert kr.LAUNCHES == {"route_spmv": 0}
