@@ -5,7 +5,9 @@ Run from the repo root with no arguments:  python3 chip_smoke.py
 Four paths of the JAX package run here.  The banded path: SparseBuilder
 assembly → CSR → DIA → spmv / spmv_dot / spmv_chain → solvers.cg, on the
 2-D 5-point Poisson operator at 2048² = 4,194,304 rows (the reference
-benchmark's cg_f32_4M).  The FEM path: SparseBuilder assembly → CSR →
+benchmark's cg_f32_4M), whose chain runs the cooperative grid kernel, and
+spmv_chain at k = 1024 on a 10⁴-row 5-diagonal band (the reference
+benchmark's banded_1e4 chain), which runs the cluster kernel.  The FEM path: SparseBuilder assembly → CSR →
 StripELL → spmv through the row-group SpMV kernel over its compact plan →
 the preconditioned solvers, on the pwtk-class surrogate
 ``matgen.fem_block_band()`` at its full 217,920 rows (the reference
@@ -36,14 +38,25 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 and the C++ assembly store
   3 kernels     each DIA kernel against its plain PyTorch version, f32 and
                 f64: odd n, offsets straddling 128, a one-row band, ±4096
-                halos, a rectangular matrix; the chain at k = 1, 2, 5, 1024
+                halos (on 2^20 and on 20,000 rows), a rectangular matrix,
+                the 10⁴-row band; the chain at k = 1, 2, 5, 1024 through the
+                kernel its plan picks, the grid kernel, and the cluster
+                kernel at every cluster size the card accepts where the
+                band fits
   4 main path   assemble, freeze, spmv (DIA kernel vs the CSR stream path),
-                spmv_chain, and 200 CG iterations through the kernels and
+                spmv_chain (the grid kernel at 2048², the cluster kernel on
+                the 10⁴-row band at k = 1024, each against the CSR stream
+                path), and 200 CG iterations through the kernels and
                 through the plain versions; launch counters must be > 0;
                 the true residual in f64 on the host
   5 converge    CG on the 512² system to rtol 1e-5
   6 determinism spmv, spmv_dot and the 200-iteration CG rerun bitwise
-  7 times       kernel vs plain with CUDA events, and CG iterations/s
+  7 times       kernel vs plain with CUDA events, and CG iterations/s; the
+                10⁴-row k = 1024 chain on the cluster and the grid kernel
+                in turns (f32 and f64), µs per step against the bound,
+                the cluster kernel's device time, and a sweep of cluster
+                sizes 1–16 and CTAs of the plan's size and of 128–1,024
+                threads, each checked against the plain chain
   8 dia dtypes  the DIA kernels on bf16, f16 and f32-matrix × f64-x operands
                 against their plain versions
   9 strip       the row-group SpMV through the StripELL wrapper against its
@@ -220,6 +233,7 @@ _SPMV_CU = "sparsemat_tpu_torch/csrc/spmv.cu"
 KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
            "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
+           "dia_spmv_chain_cluster": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
            "strip_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/strip.py:42"),
            "route_spmv": ("sparsemat_tpu_torch/csrc/route.cu",
                           "sparsemat_tpu/kernels/route.py:102, sparsemat_tpu/kernels/route.py:198"),
@@ -288,6 +302,120 @@ def averaging_dia(n_rows, n_cols, offs, dtype, g):
     data = data / data.sum(0).clamp_min(1e-30)
     return tsm.DIA(data=data.to(dtype).contiguous(), offsets=tuple(offs),
                    shape=(n_rows, n_cols))
+
+
+def averaging_band(n, offs, seed):
+    """An n-row band as a scipy CSR (f32) with random nonnegative weights,
+    each row summing to 1: the operator of the reference benchmark's
+    banded_1e4 chain, bounded for any k."""
+    w = np.random.default_rng(seed).random((len(offs), n))
+    i = np.arange(n)
+    for d, o in enumerate(offs):
+        w[d][(i + o < 0) | (i + o >= n)] = 0
+    w /= w.sum(0)
+    # scipy's diagonal o starts at row max(0, -o)
+    diags = [w[d][max(0, -o):n - max(0, o)] for d, o in enumerate(offs)]
+    return sp.diags(diags, offs, shape=(n, n), format="csr").astype(np.float32)
+
+
+#: each chain kernel's row in the kernels JSON line
+CHAIN_NAME = {"grid": "dia_spmv_chain", "cluster": "dia_spmv_chain_cluster"}
+
+
+def chain_plans(A, dtype, threads=(None,)):
+    """The chain plans held against the plain chain: the grid kernel, and
+    the cluster kernel at every cluster size the card accepts where the
+    band fits, at each CTA size of ``threads`` (None: the plan's own),
+    each once."""
+    n, n_d = A.shape[0], len(A.offsets)
+    halo = sum(kd.chain_halos(A.offsets, n))
+    smem, most = kd.cluster_limits(A.data.device, dtype)
+    plans = [kd.grid_plan(A, dtype)]
+    plans += [kd.cluster_plan(A, dtype, c, t) for t in threads for c in kd.CLUSTER_SIZES
+              if c <= most and kd.cluster_smem(n, n_d, dtype.itemsize, c, halo) <= smem]
+    return list({plan_label(p): p for p in plans}.values())
+
+
+def plan_label(plan):
+    if plan.kernel == "grid":
+        return f"grid {plan.blocks} CTAs"
+    return f"cluster {plan.blocks}×{plan.threads}"
+
+
+#: CTA sizes of phase 7's sweep of the cluster chain
+SWEEP_THREADS = (128, 256, 512, 1024)
+
+
+def chain_counts():
+    """Chain launches by kernel, under their names in the kernels JSON."""
+    return {CHAIN_NAME[kern]: count for kern, count in kd.CHAIN_KERNELS.items()}
+
+
+def chain_times(dev, g, times, nc=10_000, kc=1024, offs=(-100, -1, 0, 1, 100)):
+    """Phase 7's chain: x ← Aᵏx on the 10⁴-row band at k = 1024, the
+    cluster kernel (its plan's pick) and the grid kernel in turns, f32 and
+    f64, the plain chain in f32, the cluster kernel's device time, and a
+    sweep of every cluster size the card accepts and of CTA sizes.  Adds
+    both kernels' rows to ``times``."""
+    n_d = len(offs)
+    for dtype in (torch.float32, torch.float64):
+        chain = averaging_dia(nc, nc, offs, dtype, g)
+        xc = torch.randn(nc, generator=g, dtype=dtype, device=dev)
+        grid = kd.grid_plan(chain, dtype)
+        picked = kd.dia_chain_plan(chain, dtype)
+        check(picked.kernel == "cluster", f"the 10^4 band's chain plan is {picked}")
+        want = kd.dia_spmv_chain_ref(chain, xc, kc)
+        for plan in (grid, picked):
+            compare(CHAIN_NAME[plan.kernel], kd.dia_spmv_chain(chain, xc, kc, plan), want,
+                    TOL[dtype]["y"], f"chain 10^4 k={kc} {dtype} {plan_label(plan)}")
+        run = {p.kernel: (lambda p=p: kd.dia_spmv_chain(chain, xc, kc, p)) for p in (grid, picked)}
+        # in turns: grid, cluster, cluster, grid
+        c_ms, g_ms, c_runs, g_runs = paired_ms(run["cluster"], run["grid"], 20)
+        name = str(dtype).replace("torch.", "")
+        n_bytes, flops = (n_d + 2) * nc * dtype.itemsize, 2 * n_d * nc * kc
+        b_ms, by = bound_ms(n_bytes, flops)
+        if dtype == torch.float32:
+            _, p_ms, _, p_runs = paired_ms(run["cluster"], lambda: kd.dia_spmv_chain_ref(
+                chain, xc, kc), 20, plain_iters=3)
+            record(times, "dia_spmv_chain", g_ms, p_ms, n_bytes, flops, None)
+            record(times, "dia_spmv_chain_cluster", c_ms, p_ms, n_bytes, flops, None)
+            c_dev = device_us(run["cluster"], 20, "dia_chain_cluster_kernel",
+                              lambda: kd.CHAIN_KERNELS["cluster"]) / 1e3
+            g_dev = device_us(run["grid"], 20, "dia_chain_kernel",
+                              lambda: kd.CHAIN_KERNELS["grid"]) / 1e3
+            times["dia_spmv_chain_cluster"].update(
+                device_ms=c_dev, cluster=picked.blocks, threads=picked.threads,
+                smem_bytes=picked.smem)
+            times["dia_spmv_chain"].update(device_ms=g_dev, ctas=grid.blocks)
+            say("7 times", f"spmv_chain 10^4 rows {list(offs)} k={kc} {name}: cluster kernel "
+                f"({plan_label(picked)}, {picked.threads} threads, {picked.smem} shared bytes a "
+                f"CTA) {c_ms:.4f} ms ({c_ms / kc * 1e3:.3f} us/step) runs {c_runs}, device "
+                f"{c_dev:.4f} ms; grid kernel ({grid.blocks} CTAs) {g_ms:.4f} ms "
+                f"({g_ms / kc * 1e3:.3f} us/step) runs {g_runs}, device {g_dev:.4f} ms; plain "
+                f"{p_ms:.4f} ms ({p_ms / kc * 1e3:.3f} us/step) runs {p_runs}; bound "
+                f"{b_ms:.4f} ms ({by}, {b_ms / kc * 1e3:.5f} us/step)")
+        else:
+            times["dia_spmv_chain_cluster"].update(f64_ms=c_ms)
+            times["dia_spmv_chain"].update(f64_ms=g_ms)
+            say("7 times", f"spmv_chain 10^4 rows k={kc} {name}: cluster kernel "
+                f"({plan_label(picked)}) {c_ms:.4f} ms ({c_ms / kc * 1e3:.3f} us/step) runs "
+                f"{c_runs}; grid kernel {g_ms:.4f} ms ({g_ms / kc * 1e3:.3f} us/step) runs "
+                f"{g_runs}; bound {b_ms:.4f} ms ({by})")
+        # the sweep: each plan checked, then timed twice, forward then backward
+        plans = [p for p in chain_plans(chain, dtype, (None,) + SWEEP_THREADS)
+                 if p.kernel == "cluster"]
+        for p in plans:
+            compare("dia_spmv_chain_cluster", kd.dia_spmv_chain(chain, xc, kc, p), want,
+                    TOL[dtype]["y"], f"chain 10^4 k={kc} {dtype} {plan_label(p)}")
+        sweep = {plan_label(p): [] for p in plans}
+        for p in plans + plans[::-1]:
+            sweep[plan_label(p)].append(cuda_ms(lambda: kd.dia_spmv_chain(chain, xc, kc, p), 20))
+        us = {lab: sum(v) / len(v) / kc * 1e3 for lab, v in sweep.items()}
+        best = min(us, key=us.get)
+        times["dia_spmv_chain_cluster"][f"sweep_us_per_step_{name}"] = us
+        say("7 times", f"cluster chain sweep {name} (us/step, mean of two): "
+            + "; ".join(f"{lab} {u:.4f}" for lab, u in us.items())
+            + f"; fastest {best}; picked {plan_label(picked)}")
 
 
 def poisson_triplets(n):
@@ -1835,8 +1963,11 @@ def main():
              ("straddle 128", 50_000, 50_000, (-129, -127, 0, 127, 129)),
              ("one-row band", 1, 1, (0,)),
              ("halo 4096", 1 << 20, 1 << 20, (-4096, -1, 0, 1, 4096)),
-             ("rectangular", 30_000, 40_001, (-5, 0, 3, 9000))]
+             ("rectangular", 30_000, 40_001, (-5, 0, 3, 9000)),
+             ("halo 4096 on 20,000", 20_000, 20_000, (-4096, -1, 0, 1, 4096)),
+             ("band 10^4", 10_000, 10_000, (-100, -1, 0, 1, 100))]
     worst = {}
+    chain_runs = {}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
         for label, nr, nc, offs in cases:
@@ -1850,14 +1981,26 @@ def main():
                 y_ref, d_ref = kd.dia_spmv_dot_ref(A, x)
                 errs.append(compare("dia_spmv_dot", y, y_ref, tol["y"], f"dia_spmv_dot y {what}"))
                 errs.append(compare("dia_spmv_dot", d, d_ref, tol["dot"], f"dia_spmv_dot dot {what}"))
+                picked = kd.dia_chain_plan(A, dtype)
+                plans = chain_plans(A, dtype)
+                chain_runs[what] = f"{plan_label(picked)} picked; " + ", ".join(
+                    plan_label(p) for p in plans)
                 for k in (1, 2, 5, 1024):
-                    errs.append(compare("dia_spmv_chain", kd.dia_spmv_chain(A, x, k),
-                                        kd.dia_spmv_chain_ref(A, x, k), tol["y"],
-                                        f"dia_spmv_chain k={k} {what}"))
+                    want = kd.dia_spmv_chain_ref(A, x, k)
+                    errs.append(compare(CHAIN_NAME[picked.kernel], kd.dia_spmv_chain(A, x, k),
+                                        want, tol["y"], f"dia_spmv_chain k={k} {what}"))
+                    for plan in plans:
+                        errs.append(compare(CHAIN_NAME[plan.kernel],
+                                            kd.dia_spmv_chain(A, x, k, plan), want, tol["y"],
+                                            f"dia_spmv_chain k={k} {what} {plan_label(plan)}"))
             worst[what] = max(errs)
     torch.cuda.synchronize()
+    limits = {str(dt).replace("torch.", ""): kd.cluster_limits(dev, dt)
+              for dt in (torch.float32, torch.float64)}
     say("3 kernels", "all within tolerance; worst rel err per case: "
-        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items()))
+        + "; ".join(f"{w} {e:.2e}" for w, e in worst.items())
+        + "; (shared bytes a CTA, largest cluster) " + str(limits)
+        + "; chains run: " + "; ".join(f"{w}: {r}" for w, r in chain_runs.items()))
 
     # 4 ------------------------------------------------------------------------
     n = 2048
@@ -1873,10 +2016,22 @@ def main():
     for _ in range(4):
         y4_csr = tsm.spmv(csr, y4_csr)
     e_chain = compare(None, y4, y4_csr, 1e-5, "spmv_chain k=4 vs CSR stream")
+    # the reference benchmark's banded_1e4 chain: a band that fits a cluster
+    chain_csr = tsm.CSR.from_scipy(averaging_band(10_000, (-100, -1, 0, 1, 100), SEED),
+                                  device=dev)
+    chain_dia = chain_csr.to_dia()
+    x_chain = torch.randn(10_000, generator=g, device=dev)
+    y_chain = tsm.spmv_chain(chain_dia, x_chain, 1024)
+    y_chain_csr = x_chain
+    for _ in range(1024):
+        y_chain_csr = tsm.spmv(chain_csr, y_chain_csr)
+    e_chain_band = compare(None, y_chain, y_chain_csr, 1e-5, "spmv_chain 10^4 k=1024 vs CSR stream")
     b = tsm.spmv(csr, torch.randn(m, generator=g, device=dev))
     x_cg, info = solvers.cg(dia, b, tol=0.0, maxiter=200)
     torch.cuda.synchronize()
     launches = dict(kd.LAUNCHES)
+    chains = dict(kd.CHAIN_KERNELS)
+    launches.update({CHAIN_NAME[kern]: count for kern, count in chains.items()})
     for name, count in launches.items():
         check(count > 0, f"the main path launched {name} no time")
     x_plain, info_plain = solvers.cg(lambda v: kd.dia_spmv_ref(dia, v), b,
@@ -1890,7 +2045,8 @@ def main():
     check(abs(r_true - r_rec) <= 0.05 * r_true, f"true residual {r_true} vs recursive {r_rec}")
     say("4 main path", f"2048² Poisson: {m} rows, {csr.n_non_zero_entries()} entries; "
         f"assemble {t_asm:.3f} s, to_csr {t_csr:.3f} s, to_dia {t_dia:.3f} s; "
-        f"spmv rel err {e_spmv:.2e}; chain rel err {e_chain:.2e}; CG 200 iters "
+        f"spmv rel err {e_spmv:.2e}; chain rel err {e_chain:.2e}; 10^4 band chain k=1024 "
+        f"rel err {e_chain_band:.2e}; chains by kernel {chains}; CG 200 iters "
         f"x rel err kernels vs plain {e_cg:.2e}; ‖r‖ recursive {r_rec:.6e} true (f64) "
         f"{r_true:.6e} of ‖b‖ {b_norm:.6e}; launches {launches}")
 
@@ -1947,17 +2103,7 @@ def main():
         f"GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms runs {p_runs}; bound "
         f"{b_ms:.4f} ms")
 
-    nc, kc = 10_000, 1024
-    chain = averaging_dia(nc, nc, (-100, -1, 0, 1, 100), torch.float32, g)
-    xc = torch.randn(nc, generator=g, device=dev)
-    compare("dia_spmv_chain", kd.dia_spmv_chain(chain, xc, kc),
-            kd.dia_spmv_chain_ref(chain, xc, kc), 1e-5, "chain 10^4 k=1024")
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv_chain(chain, xc, kc),
-                                           lambda: kd.dia_spmv_chain_ref(chain, xc, kc), 5)
-    b_ms, by = record(times, "dia_spmv_chain", k_ms, p_ms, 7 * nc * 4, 2 * 5 * nc * kc, None)
-    say("7 times", f"spmv_chain 10^4 rows [-100,-1,0,1,100] k=1024 f32: kernel {k_ms:.4f} ms "
-        f"({k_ms / kc * 1e3:.3f} us/step) runs {k_runs}; plain {p_ms:.4f} ms "
-        f"({p_ms / kc * 1e3:.3f} us/step) runs {p_runs}; bound {b_ms:.4f} ms ({by})")
+    chain_times(dev, g, times)
 
     # CG's loop takes the fused SpMV + dot; the plain SpMV runs once before
     # it, so the SpMV's step is a product of spmv
@@ -1965,12 +2111,17 @@ def main():
     note_steps(times, "dia_spmv_dot", per["dia_spmv_dot"], "CG iteration, 2048² Poisson DIA")
     per_v = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv(dia, x) for _ in range(j)], 1)
     note_steps(times, "dia_spmv", per_v["dia_spmv"], "spmv(DIA, x) product, 2048² Poisson")
-    per_c = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv_chain(dia, x, 4)
-                                                     for _ in range(j)], 1)
+    per_c = per_step(chain_counts, lambda j: [tsm.spmv_chain(dia, x, 4) for _ in range(j)], 1)
     note_steps(times, "dia_spmv_chain", per_c["dia_spmv_chain"],
                "spmv_chain(DIA, x, 4) product, 2048² Poisson")
+    check(per_c["dia_spmv_chain_cluster"] == 0, "the 2048² chain launched the cluster kernel")
+    per_b = per_step(chain_counts, lambda j: [tsm.spmv_chain(chain_dia, x_chain, 1024)
+                                              for _ in range(j)], 1)
+    note_steps(times, "dia_spmv_chain_cluster", per_b["dia_spmv_chain_cluster"],
+               "spmv_chain(DIA, x, 1024) product, 10^4-row band")
+    check(per_b["dia_spmv_chain"] == 0, "the 10^4 band's chain launched the grid kernel")
     say("7 times", f"DIA launches per CG iteration {per}; per spmv {per_v}; per "
-        f"spmv_chain(k=4) {per_c}")
+        f"spmv_chain(k=4) at 2048² {per_c}; per spmv_chain(k=1024) on the 10^4 band {per_b}")
     for label, A_, b_, iters in (("512²", dia5, b5, 640), ("2048²", dia, b, 320)):
         plain = (lambda A__: (lambda v: kd.dia_spmv_ref(A__, v)))(A_)
         runs = [cg_iters_per_s(plain, b_, iters), cg_iters_per_s(A_, b_, iters),
