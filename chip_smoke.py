@@ -51,7 +51,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 the true residual in f64 on the host
   5 converge    CG on the 512² system to rtol 1e-5
   6 determinism spmv, spmv_dot and the 200-iteration CG rerun bitwise
-  7 times       kernel vs plain with CUDA events, and CG iterations/s; the
+  7 times       the DIA SpMV on the 2^24-row band and at 2048², and the
+                SpMV with its dot at 2048² in f32 and f64: each in three
+                measured calls (CUDA events, their spread) between two of
+                the plain version, its device time, the plan's picks (V,
+                tile, compiled count, grid, edge tiles) and torch.mv (+
+                torch.dot) on the CSR; one spmv_dot call launches one
+                device kernel; CG iterations/s; the
                 10⁴-row k = 1024 chain on the cluster and the grid kernel
                 in turns (f32 and f64), µs per step against the bound,
                 the cluster kernel's device time, and a sweep of cluster
@@ -187,8 +193,8 @@ Then a JSON line of the kernels and, last, the device JSON line.
 64 CG iterations through the kernels at 512² and 2048², of 64 PCG(Jacobi)
 iterations on the FEM StripELL and SlabStream and of 64 BiCGStab iterations
 on the circuit RouteStream (the merge-path kernel), and prints the device time per iteration by
-kernel (and of each path's SpMV kernel on a line of its own) and the
-device's busy share of wall time.
+kernel (and of each path's SpMV kernel on a line of its own), the device
+kernels launched per iteration and the device's busy share of wall time.
 
 Tolerances (relative to max|reference|): f32 y 1e-5 (the same sums,
 rounded with and without fused multiply-add, and for the row-group and
@@ -416,6 +422,106 @@ def chain_times(dev, g, times, nc=10_000, kc=1024, offs=(-100, -1, 0, 1, 100)):
         say("7 times", f"cluster chain sweep {name} (us/step, mean of two): "
             + "; ".join(f"{lab} {u:.4f}" for lab, u in us.items())
             + f"; fastest {best}; picked {plan_label(picked)}")
+
+
+def three_ms(kernel_fn, plain_fn, iters, plain_iters=None):
+    """Three measured timings of the kernel between two of its plain
+    version (plain, kernel, kernel, kernel, plain), and their spread."""
+    plain_iters = plain_iters or iters
+    p1 = cuda_ms(plain_fn, plain_iters)
+    runs = [cuda_ms(kernel_fn, iters) for _ in range(3)]
+    p2 = cuda_ms(plain_fn, plain_iters)
+    return runs, [p1, p2], (max(runs) - min(runs)) / min(runs)
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` launches, from a
+    torch.profiler trace (``fn`` run once before, so nothing is built)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+
+
+def plan_picks(plan):
+    return {"vec": plan.vec, "tile": plan.tile, "tiles": plan.tiles, "n_d": plan.n_d,
+            "grid": plan.grid, "interior": list(plan.interior), "edge_tiles": plan.edge_tiles,
+            "near": list(plan.near), "far": list(plan.far)}
+
+
+def dia_spmv_times(dev, g, times, dia, csr, nb=1 << 24):
+    """Phase 7's SpMV rows: the SpMV (row 1) on the 2^24-row band and on
+    the 2048² Poisson operator, and the SpMV with its dot (row 2) at 2048²
+    in f32 and f64.  Each is held to its plain version, then timed in three
+    measured calls between two of the plain version (CUDA events per call,
+    wrapper included), with their spread, its device time (profiler), the
+    plan's picks and, as an informative figure, the library's two calls
+    torch.mv on the CSR and torch.dot.  One call of the dot launches one
+    device kernel and nothing else.  Adds rows 1 and 2 to ``times``."""
+    band = averaging_dia(nb, nb, (-4096, -1, 0, 1, 4096), torch.float32, g)
+    xb = torch.randn(nb, generator=g, device=dev)
+    m = dia.shape[0]
+    xd = torch.randn(m, generator=g, device=dev)
+    dia64 = tsm.DIA(data=dia.data.double(), offsets=dia.offsets, shape=dia.shape)
+    csr_t = torch_csr(csr)
+    csr64 = torch.sparse_csr_tensor(csr_t.crow_indices(), csr_t.col_indices(),
+                                    csr_t.values().double(), csr_t.shape)
+    band_t = torch_csr(band.to_csr())
+    cases = [
+        ("dia_spmv", f"spmv {nb}-row band [-4096,-1,0,1,4096] f32", band, xb, False, band_t),
+        ("dia_spmv", "spmv 2048² Poisson f32", dia, xd, False, csr_t),
+        ("dia_spmv_dot", "spmv_dot 2048² Poisson f32", dia, xd, True, csr_t),
+        ("dia_spmv_dot", "spmv_dot 2048² Poisson f64", dia64, xd.double(), True, csr64),
+    ]
+    for name, label, A, x, with_dot, lib_csr in cases:
+        dtype, n = x.dtype, A.shape[0]
+        n_d = len(A.offsets)
+        if with_dot:
+            (yk, dk), (yp, dp) = kd.dia_spmv_dot(A, x), kd.dia_spmv_dot_ref(A, x)
+            compare(name, yk, yp, TOL[dtype]["y"], f"{label} y")
+            compare(name, dk, dp, TOL[dtype]["dot"], f"{label} dot")
+            kernel_fn, plain_fn = (lambda: kd.dia_spmv_dot(A, x)), (lambda: kd.dia_spmv_dot_ref(A, x))
+            lib_fn = lambda: torch.dot(torch.mv(lib_csr, x), x)
+        else:
+            compare(name, kd.dia_spmv(A, x), kd.dia_spmv_ref(A, x), TOL[dtype]["y"], label)
+            kernel_fn, plain_fn = (lambda: kd.dia_spmv(A, x)), (lambda: kd.dia_spmv_ref(A, x))
+            lib_fn = lambda: torch.mv(lib_csr, x)
+        runs, p_runs, spread = three_ms(kernel_fn, plain_fn, 50 if n < nb else 20)
+        k_ms, p_ms = sum(runs) / 3, sum(p_runs) / 2
+        dev_ms = device_us(kernel_fn, 50, "dia_spmv_kernel", lambda: kd.LAUNCHES[name]) / 1e3
+        lib = library_ms(lib_fn, 20)
+        n_bytes = (n_d + 2) * n * dtype.itemsize
+        flops = 2 * n_d * n + (2 * n if with_dot else 0)
+        b_ms, by = bound_ms(n_bytes, flops)
+        picks = plan_picks(kd.dia_spmv_plan(A, dtype, dev))
+        entry = {"ms": k_ms, "runs_ms": runs, "spread": spread, "plain_ms": p_ms,
+                 "device_ms": dev_ms, "bound_ms": b_ms, "plan": picks}
+        if name not in times:
+            # the table's rows: row 1 on the 2^24 band, row 2 at 2048² f32;
+            # the dot has no single library call (torch.mv + torch.dot is two)
+            record(times, name, k_ms, p_ms, n_bytes, flops, None if with_dot else lib)
+            times[name].update(runs_ms=runs, spread=spread, device_ms=dev_ms, plan=picks)
+            if with_dot:
+                times[name]["mv_dot_ms"] = lib
+        else:
+            times[name][label] = dict(entry, library_two_calls_ms=lib) if with_dot else dict(
+                entry, library_ms=lib)
+        say("7 times", f"{label}: kernel {k_ms:.4f} ms ({n_bytes / 1e6 / k_ms:.1f} GB/s) runs "
+            f"{[round(r, 4) for r in runs]} spread {100 * spread:.1f}%; device {dev_ms:.4f} ms "
+            f"({n_bytes / 1e6 / dev_ms:.1f} GB/s, {b_ms / dev_ms:.1%} of the bound); plain "
+            f"{p_ms:.4f} ms runs {[round(r, 4) for r in p_runs]}; bound {b_ms:.4f} ms ({by}); "
+            f"{'torch.mv + torch.dot (two calls)' if with_dot else 'torch.mv'} on the CSR "
+            f"{lib:.4f} ms; plan V={picks['vec']} T={picks['tile']} n_d={picks['n_d']} "
+            f"grid={picks['grid']} of {picks['tiles']} tiles, edge tiles {picks['edge_tiles']}")
+    one = device_kernels(lambda: kd.dia_spmv_dot(dia, xd))
+    check(len(one) == 1 and "dia_spmv_kernel" in one[0],
+          f"one spmv_dot call launched {one}, not the one SpMV kernel")
+    say("7 times", f"one spmv_dot call launches one device kernel: {one[0][:90]}")
 
 
 def poisson_triplets(n):
@@ -741,8 +847,10 @@ def profile_solvers(dev, iters=64):
         dev_us = sum(e.self_device_time_total for e in kern) / iters
         check(dev_us > 0, "the profiler recorded no device time")
         spmv_us = sum(e.self_device_time_total for e in kern if key in e.key) / iters
+        per_iter = sum(e.count for e in kern) / iters
         say("profile", f"{label}: wall us/iter unprofiled {walls}, profiled {wall}; "
-            f"device us/iter {dev_us}, of it {spmv_us} in the kernels named *{key}*; busy "
+            f"device us/iter {dev_us}, of it {spmv_us} in the kernels named *{key}*; "
+            f"{per_iter:.2f} device kernels per iteration; busy "
             f"share of unprofiled wall {dev_us / min(walls)}, of profiled wall {dev_us / wall}")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:14]:
             print(f"   {e.self_device_time_total / iters:9.2f} us/iter  "
@@ -2073,36 +2181,7 @@ def main():
 
     # 7 ------------------------------------------------------------------------
     times = {}
-    nb = 1 << 24
-    band = averaging_dia(nb, nb, (-4096, -1, 0, 1, 4096), torch.float32, g)
-    xb = torch.randn(nb, generator=g, device=dev)
-    compare("dia_spmv", kd.dia_spmv(band, xb), kd.dia_spmv_ref(band, xb), 1e-5, "2^24 band")
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv(band, xb),
-                                           lambda: kd.dia_spmv_ref(band, xb), 20)
-    gbs = 7 * nb * 4 / 1e6
-    band_lib = torch_csr(band.to_csr())
-    lib = library_ms(lambda: torch.mv(band_lib, xb), 20)
-    # the band's need: its diagonals carry no column index, so 5 values a row
-    # (fewer bytes than the CSR of need_bytes), x and y
-    b_ms, _ = record(times, "dia_spmv", k_ms, p_ms, 7 * nb * 4, 2 * 5 * nb, lib)
-    say("7 times", f"spmv 2^24-row band [-4096,-1,0,1,4096] f32: kernel {k_ms:.4f} ms "
-        f"({gbs / k_ms:.1f} GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms "
-        f"({gbs / p_ms:.1f} GB/s) runs {p_runs}; bound {b_ms:.4f} ms; torch.mv on the "
-        f"CSR {lib} ms")
-    del band, xb, band_lib
-
-    xd = torch.randn(m, generator=g, device=dev)
-    yk, dk = kd.dia_spmv_dot(dia, xd)
-    yp, dp = kd.dia_spmv_dot_ref(dia, xd)
-    compare("dia_spmv_dot", yk, yp, 1e-5, "dot y 2048²")
-    compare("dia_spmv_dot", dk, dp, 1e-4, "dot 2048²")
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kd.dia_spmv_dot(dia, xd),
-                                           lambda: kd.dia_spmv_dot_ref(dia, xd), 50)
-    b_ms, _ = record(times, "dia_spmv_dot", k_ms, p_ms, 7 * m * 4, 2 * 5 * m + 2 * m, None)
-    say("7 times", f"spmv_dot 2048² f32: kernel {k_ms:.4f} ms ({7 * m * 4 / 1e6 / k_ms:.1f} "
-        f"GB/s effective) runs {k_runs}; plain {p_ms:.4f} ms runs {p_runs}; bound "
-        f"{b_ms:.4f} ms")
-
+    dia_spmv_times(dev, g, times, dia, csr)
     chain_times(dev, g, times)
 
     # CG's loop takes the fused SpMV + dot; the plain SpMV runs once before

@@ -12,6 +12,11 @@ through a kernel.  Operands of two dtypes are promoted as
 accumulated in f32 (``types.accum_dtype``), so y is f32.  The chain carries
 the accumulation dtype through its steps (f32 or f64).
 
+The SpMV and its dot run one kernel over a persistent grid of row tiles
+(``dia_spmv_plan`` sizes it, a pure function of the shape, the offsets,
+the item size and the card's SMs and occupancy, cached on the matrix); the
+dot is finished in the same launch, by the last CTA, into a 0-d tensor.
+
 The chain has two kernels (``dia_chain_plan`` picks one by size): one
 thread-block cluster holding the band and x in shared memory, for a band
 that fits one cluster, and a cooperative grid over global memory for the
@@ -26,7 +31,7 @@ here.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -40,8 +45,13 @@ LAUNCHES = {"dia_spmv": 0, "dia_spmv_dot": 0, "dia_spmv_chain": 0}
 #: chain launches by kernel: the cluster kernel or the cooperative grid
 CHAIN_KERNELS = {"cluster": 0, "grid": 0}
 
-#: grid cap of the SpMV kernels; past it each thread loops over rows
-MAX_BLOCKS = 1 << 16
+#: diagonal counts the SpMV kernel is compiled for (``csrc/dia.cu``
+#: SMT_DIA_SPEC_COUNTS): the tridiagonal bands (3) and the 2-D 5-point
+#: Poisson and benchmark bands (5); any other count runs the kernel's loop
+#: over diagonals
+SPECIALISED = (3, 5)
+#: threads of an SpMV CTA (``csrc/dia.cu`` SPMV_THREADS)
+SPMV_THREADS = 256
 
 #: SpMV kernel per storage dtype (y and the dot in accum_dtype of it)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
@@ -58,6 +68,8 @@ MIN_THREADS = 256
 _lib = None
 _chain_max_blocks: dict = {}
 _cluster_limits: dict = {}
+_spmv_occupancy: dict = {}
+_dot_scratch: dict = {}
 
 
 def reset_launches() -> None:
@@ -74,7 +86,10 @@ def _kernels() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for s in _SUFFIX.values():
             fn = getattr(lib, f"smt_dia_spmv_{s}")
-            fn.argtypes = [vp, vp, i32, i64, i64, vp, vp, vp, i32, vp]
+            fn.argtypes = [ctypes.POINTER(SpmvLaunch), vp, vp, vp, vp, vp, vp, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"smt_dia_spmv_occupancy_{s}")
+            fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
             fn.restype = i32
         for s in _CHAIN_SUFFIX.values():
             fn = getattr(lib, f"smt_dia_chain_{s}")
@@ -93,6 +108,7 @@ def _kernels() -> ctypes.CDLL:
         lib.smt_dia_chain_cluster_threads.restype = i32
         lib.smt_dia_chain_cluster_unroll.restype = i32
         lib.smt_dia_threads.restype = i32
+        lib.smt_dia_spmv_threads.restype = i32
         lib.smt_cuda_error_string.argtypes = [i32]
         lib.smt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -112,7 +128,9 @@ def _on_cpu(dia: DIA, x: torch.Tensor) -> bool:
 def _operands(dia: DIA, x: torch.Tensor, what: str, dtype=None):
     """(data, x) for the CUDA kernel: both on one CUDA device, contiguous, of
     one dtype — ``dtype``, or else ``torch.promote_types`` of the two.
-    Raises on anything the kernels do not take."""
+    Raises on anything the kernels do not take.  A promoted ``data`` is
+    made once per dtype and kept on the matrix (a DIA is frozen), so mixed
+    operands copy only x on each call."""
     if x.device.type != "cuda" or dia.data.device != x.device:
         raise ValueError(f"{what}: matrix on {dia.data.device} and vector on "
                          f"{x.device}; the kernel needs both on one CUDA device")
@@ -131,7 +149,21 @@ def _operands(dia: DIA, x: torch.Tensor, what: str, dtype=None):
         raise ValueError(f"{what}: the kernel needs contiguous data and x")
     if dtype is None:
         dtype = torch.promote_types(dia.data.dtype, x.dtype)
-    return dia.data.to(dtype), x.to(dtype)
+    return promoted_data(dia, dtype), x if x.dtype == dtype else x.to(dtype)
+
+
+def promoted_data(dia: DIA, dtype: torch.dtype) -> torch.Tensor:
+    """``dia.data`` in ``dtype``: itself, or a copy made once and cached on
+    the matrix."""
+    if dia.data.dtype == dtype:
+        return dia.data
+    cache = dia.__dict__.get("_promoted")
+    if cache is None:
+        cache = {}
+        object.__setattr__(dia, "_promoted", cache)
+    if dtype not in cache:
+        cache[dtype] = dia.data.to(dtype)
+    return cache[dtype]
 
 
 def _require_square(dia: DIA, what: str) -> None:
@@ -139,27 +171,176 @@ def _require_square(dia: DIA, what: str) -> None:
         raise ValueError(f"{what} needs a square matrix, got {dia.shape}")
 
 
-def _spmv_blocks(n_rows: int, threads: int) -> int:
-    return max(1, min(-(-n_rows // threads), MAX_BLOCKS))
+# --- the SpMV's plan ----------------------------------------------------------
+
+class SpmvLaunch(ctypes.Structure):
+    """One SpMV launch's plan as ``csrc/dia.cu`` reads it (``SpmvLaunch``)."""
+    _fields_ = [("offs", ctypes.c_void_p), ("offs_host", ctypes.c_void_p),
+                ("n_d", ctypes.c_int), ("nd_spec", ctypes.c_int), ("vec", ctypes.c_int),
+                ("grid", ctypes.c_int), ("n_rows", ctypes.c_int64), ("n_cols", ctypes.c_int64),
+                ("tiles", ctypes.c_int64), ("lo_tile", ctypes.c_int64),
+                ("hi_tile", ctypes.c_int64)]
+
+
+@dataclass(frozen=True)
+class SpmvPlan:
+    """How the SpMV kernel walks one matrix.  Each thread owns ``vec``
+    consecutive rows of a tile of ``tile`` = ``SPMV_THREADS`` · vec rows;
+    ``grid`` CTAs walk the ``tiles`` tiles, CTA b taking b, b + grid, ….
+    Tiles in ``interior`` = [lo, hi) read no row past n_rows and no x
+    outside [0, n_cols); the others (``edge_tiles``) test each element.
+    ``n_d``: the diagonal count the kernel is compiled for, or 0 for its
+    loop.  ``near``: the diagonals whose offset is not a multiple of vec,
+    whose x straddles two aligned vectors (the next lane's, by shuffle);
+    ``far``: the others, one aligned vector each.  ``offsets_host``: the
+    offsets as a C array, for the compiled counts' parameters; ``launch``:
+    the plan as the kernel's C struct, for a matrix on the card."""
+    vec: int
+    tile: int
+    tiles: int
+    n_d: int
+    grid: int
+    interior: tuple[int, int]
+    near: tuple[int, ...]
+    far: tuple[int, ...]
+    offsets_host: object = field(default=None, compare=False, repr=False)
+    launch: object = field(default=None, compare=False, repr=False)
+
+    @property
+    def edge_tiles(self) -> list[int]:
+        lo, hi = self.interior
+        return [t for t in range(self.tiles) if not lo <= t < hi]
+
+
+def spmv_vec(n_rows: int, itemsize: int) -> int:
+    """Rows a thread: a 16-byte vector of values (4 f32, 2 f64, 8 bf16/f16)
+    where each diagonal's slice starts 16-byte aligned (n_rows · itemsize a
+    multiple of 16), else 1."""
+    v = 16 // itemsize
+    return v if n_rows % v == 0 else 1
+
+
+def spmv_plan(n_rows: int, n_cols: int, offsets, itemsize: int, sms: int, per_sm,
+              threads: int = SPMV_THREADS, aligned: bool = True) -> SpmvPlan:
+    """The SpMV kernel's plan, a pure function of the shape, the offsets,
+    the item size and the card: ``sms`` SMs each holding ``per_sm(vec,
+    n_d)`` CTAs of the instantiation.  ``aligned`` False (a data or x
+    pointer not 16-byte aligned) takes vec = 1."""
+    offsets = tuple(int(o) for o in offsets)
+    vec = spmv_vec(n_rows, itemsize) if aligned else 1
+    n_d = len(offsets) if vec > 1 and len(offsets) in SPECIALISED else 0
+    tile = threads * vec
+    tiles = max(1, -(-n_rows // tile))
+    q = [o // vec for o in offsets]
+    near = tuple(d for d, o in enumerate(offsets) if o % vec)
+    far = tuple(d for d, o in enumerate(offsets) if not o % vec)
+    # a tile at base reads, for diagonal d, x over [base + q·vec, base +
+    # tile + q·vec), and one vector more where the offset is near
+    reach_lo = max([0] + [-qd * vec for qd in q])
+    reach_hi = max([0] + [qd * vec + (vec if o % vec else 0) for qd, o in zip(q, offsets)])
+    lo = -(-reach_lo // tile)
+    hi = (min(n_rows, n_cols - reach_hi) - tile) // tile + 1
+    hi = min(max(hi, lo), tiles)
+    lo = min(lo, hi)
+    grid = max(1, min(sms * max(1, per_sm(vec, n_d)), tiles))
+    return SpmvPlan(vec, tile, tiles, n_d, grid, (lo, hi), near, far,
+                    (ctypes.c_int64 * max(1, len(offsets)))(*offsets))
+
+
+def _occupancy(device: torch.device, dtype: torch.dtype):
+    """CTAs an SM of ``device`` holds, as a function of the instantiation
+    (vec, n_d), read from the card once each."""
+    def per_sm(vec, n_d):
+        key = (device, dtype, vec, n_d)
+        if key not in _spmv_occupancy:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                rc = getattr(_kernels(), f"smt_dia_spmv_occupancy_{_SUFFIX[dtype]}")(
+                    n_d, vec, ctypes.byref(n))
+            _check(rc, "dia_spmv_plan")
+            if n.value < 1:
+                raise RuntimeError(f"dia_spmv_plan: an SM of {device} holds no CTA of the "
+                                   f"SpMV kernel (vec {vec}, n_d {n_d})")
+            _spmv_occupancy[key] = n.value
+        return _spmv_occupancy[key]
+    return per_sm
+
+
+def dia_spmv_plan(dia: DIA, dtype: torch.dtype, device, aligned: bool = True) -> SpmvPlan:
+    """``spmv_plan`` for this DIA run in ``dtype`` on the CUDA ``device``,
+    from the card's SM count and occupancy, with its ``launch`` struct;
+    cached on the matrix."""
+    key = (dtype, device, aligned)
+    cache = dia.__dict__.get("_spmv_plans")
+    if cache is None:
+        cache = {}
+        object.__setattr__(dia, "_spmv_plans", cache)
+    plan = cache.get(key)
+    if plan is None:
+        device = torch.device(device)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = spmv_plan(dia.shape[0], dia.shape[1], dia.offsets, dtype.itemsize, sms,
+                         _occupancy(device, dtype), _kernels().smt_dia_spmv_threads(),
+                         aligned)
+        launch = SpmvLaunch(dia.offsets_dev.data_ptr(), ctypes.addressof(plan.offsets_host),
+                            len(dia.offsets), plan.n_d, plan.vec, plan.grid, dia.shape[0],
+                            dia.shape[1], plan.tiles, *plan.interior)
+        plan = cache[key] = replace(plan, launch=launch)
+    return plan
+
+
+def dot_scratch(device: torch.device, stream: int):
+    """(partials, counter) of the fused dot: room for every CTA of any plan
+    (an SM holds at most 32), 8 bytes each, and an unsigned counter at 0
+    that each launch leaves at 0.
+
+    An eager launch takes the pair of its (device, stream), made and zeroed
+    at its first launch there, so launches on two streams never share a
+    counter.  A launch being captured into a CUDA graph takes a pair of its
+    own, made from the graph's memory pool, whose counter is zeroed by a
+    fill that the graph replays just before the kernel: so no replay reads
+    a counter that another graph, or an eager launch on the capture's
+    stream, left in use, and two graphs replayed at once on two streams
+    share nothing.  The cost is one 4-byte fill node per captured launch.
+    The eager pairs are bounded by PyTorch's pool of streams per device
+    (and any external streams)."""
+    def made():
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return (torch.empty(32 * sms, dtype=torch.float64, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+
+    if torch.cuda.is_current_stream_capturing():
+        return made()
+    key = (device, stream)
+    if key not in _dot_scratch:
+        _dot_scratch[key] = made()
+    return _dot_scratch[key]
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool, what: str):
+    """y (and the 0-d dot) by one launch of the SpMV kernel."""
     data, x = _operands(dia, x, what)
-    lib = _kernels()
-    n_rows, n_cols = dia.shape
+    dev = x.device
+    plan = dia_spmv_plan(dia, data.dtype, dev, aligned=_aligned(data, x))
     adt = accum_dtype(data.dtype)
-    blocks = _spmv_blocks(n_rows, lib.smt_dia_threads())
-    y = torch.empty(n_rows, dtype=adt, device=x.device)
-    partials = (torch.empty(blocks, dtype=adt, device=x.device)
-                if with_dot else None)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"smt_dia_spmv_{_SUFFIX[data.dtype]}")(
-            data.data_ptr(), dia.offsets_dev.data_ptr(), len(dia.offsets),
-            n_rows, n_cols, x.data_ptr(), y.data_ptr(),
-            partials.data_ptr() if with_dot else None, blocks,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    y = torch.empty(dia.shape[0], dtype=adt, device=dev)
+    dot = torch.empty((), dtype=adt, device=dev) if with_dot else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partials, counter = dot_scratch(dev, stream) if with_dot else (None, None)
+        rc = getattr(_kernels(), f"smt_dia_spmv_{_SUFFIX[data.dtype]}")(
+            plan.launch, data.data_ptr(), x.data_ptr(), y.data_ptr(), _ptr(partials),
+            _ptr(counter), _ptr(dot), stream)
     _check(rc, what)
-    return y, partials
+    return y, dot
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # --- plain versions ----------------------------------------------------------
@@ -181,7 +362,8 @@ def dia_spmv_chain_ref(dia: DIA, x: torch.Tensor, k: int) -> torch.Tensor:
 # --- wrappers ----------------------------------------------------------------
 
 def dia_spmv(dia: DIA, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x.  CUDA: the ``dia_spmv_kernel``; CPU: the plain version."""
+    """y = A @ x.  CUDA: one launch of ``dia_spmv_kernel`` over the
+    matrix's plan; CPU: the plain version."""
     if _on_cpu(dia, x):
         return dia_spmv_ref(dia, x)
     y, _ = _launch_spmv(dia, x, with_dot=False, what="dia_spmv")
@@ -191,13 +373,15 @@ def dia_spmv(dia: DIA, x: torch.Tensor) -> torch.Tensor:
 
 def dia_spmv_dot(dia: DIA, x: torch.Tensor):
     """(A @ x, x·(A @ x)) in one pass over the matrix (square A) — CG's
-    A·p and pᵀAp.  The dot's per-block partials are summed by torch.sum."""
+    A·p and pᵀAp.  CUDA: one launch, which also sums the dot (a 0-d tensor
+    in the accumulation dtype) in a fixed order, so reruns are bitwise
+    equal; CPU: the plain version."""
     _require_square(dia, "dia_spmv_dot")
     if _on_cpu(dia, x):
         return dia_spmv_dot_ref(dia, x)
-    y, partials = _launch_spmv(dia, x, with_dot=True, what="dia_spmv_dot")
+    y, dot = _launch_spmv(dia, x, with_dot=True, what="dia_spmv_dot")
     LAUNCHES["dia_spmv_dot"] += 1
-    return y, torch.sum(partials)
+    return y, dot
 
 
 # --- the chain's plan ----------------------------------------------------------

@@ -72,6 +72,8 @@ TILED_CASES = [
     (300, (-7, 0, 13), 1024),                # sub-lane offsets both signs
     (4096, (-1024, 0, 1024), 1024),          # 4 chunks, pure row shifts
     (2048, (-129, -127, 0, 127, 129), 1024),  # offsets straddling a lane
+    (64 * 64, (-64, -1, 0, 1, 64), 1024),     # the 2-D Poisson offsets, s = 64
+    (128 * 128, (-128, -1, 0, 1, 128), 4096),  # and s = 128
 ]
 
 
