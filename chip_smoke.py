@@ -30,7 +30,9 @@ over its plan →
 BiCGStab, GMRES(30) and rmatvec; the FEM operator → SlabStream → spmv
 through the row-group SpMV kernel over its plan (the plan of the StripELL
 and SlabPack of the same CSR) → PCG(Jacobi); auto_format on the Poisson,
-FEM and circuit operators.
+FEM and circuit operators.  Last, the matrix algebra on the FEM operator,
+SpGEMM (A·A of the circuit operator and of the FEM operator at full size,
+through spgemm's ESC path) and SOR / Gauss-Seidel over the level schedule.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
@@ -175,6 +177,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 row-group SpMV over WELL and PCG(Jacobi) iterations/s over
                 SlabStream (against the plain versions), the host seconds of
                 to_well, to_slab_stream, to_slab_pack and the plans
+ 25 algebra     on the FEM operator (CSR, f32): transpose, add(A, A.T),
+                sub(A, A.T) and A - A against scipy on the host (structure
+                and values equal, after pruning padding and zeros);
+                is_symmetric of the FEM operator, the circuit operator and
+                the circuit operator with one value moved; is_sorted,
+                extract_row; the seconds of each call (CUDA events)
+ 26 spgemm      the circuit operator's A·A, which its 3,751-entry row sends
+                down the ESC path (expand, sort, compress): against scipy's
+                A @ A (structure after pruning zeros, values within rel
+                1e-5), rerun bitwise; cold and warm seconds, M out-nnz/s,
+                scipy's host seconds and torch.sparse.mm of the CUDA CSR
+                tensor (a yardstick, used by no path; its failure is printed)
+ 27 spgemm fem  the FEM operator's A·A at full size, 547,534,650 candidates
+                in row-aligned parts: the probe C·v against A·(A·v) through
+                spmv (rel 1e-4), rerun bitwise; the plan's seconds apart
+                from the expand/sort/compress seconds, cold and warm, output
+                nse, M out-nnz/s, parts and part size, peak device memory,
+                the torch.sparse.mm yardstick
+ 28 sor         the level schedule of the FEM SPD operator of phase 10; one
+                Gauss-Seidel sweep against a row-by-row sweep in f64 on the
+                host (rel 1e-5); 20 sweeps as a smoother (ms a sweep, device
+                kernels a sweep from the profiler, the true residual in f64
+                on the host), rerun bitwise; SOR at omega 1.9 on 128² Poisson
+                in f64 to rtol 1e-6 on the card and on the CPU path of the
+                port (equal iteration counts, iterates within rel 1e-5),
+                rerun bitwise; and the seconds of phases 25-28
+Phases 25-28 run no CUDA kernel of the port: SpGEMM, the algebra and the
+SOR sweep are PyTorch ops on the card, as the reference has no TPU kernel
+there.
 Every kernel's timing phase also times one PyTorch library call that
 computes the same function on the same operator (torch.mv or
 torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot and the
@@ -264,6 +295,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 MAX_ABS = {name: 0.0 for name in KERNELS}
+#: the candidate products of the FEM operator's A·A (counted with numpy)
+FEM_CANDIDATES = 547_534_650
 
 
 T0 = time.perf_counter()
@@ -2039,6 +2072,238 @@ def general_phases(dev, g, times, launches, poisson_csr):
         f"PCG {per_s}")
 
 
+def scipy_csr(csr):
+    """A port CSR as a scipy CSR on the host (its valid entries)."""
+    nnz = csr.n_non_zero_entries()
+    return sp.csr_matrix((csr.data[:nnz].cpu().numpy(), csr.indices[:nnz].cpu().numpy(),
+                          csr.indptr.cpu().numpy()), shape=csr.shape)
+
+
+def same_as_scipy(csr, ref, what):
+    """The port's result, pruned of padding and zeros, equal to scipy's in
+    structure and values."""
+    got = scipy_csr(csr.prune(keep_zeros=False))
+    ref = ref.tocsr()
+    ref.eliminate_zeros()
+    ref.sort_indices()
+    check(np.array_equal(got.indptr, ref.indptr) and np.array_equal(got.indices, ref.indices),
+          f"{what}: structure differs from scipy")
+    check(np.array_equal(got.data, ref.data.astype(got.data.dtype)),
+          f"{what}: values differ from scipy")
+
+
+def timed(fn):
+    """(result, wall seconds, CUDA-event seconds) of one call."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def sparse_mm_yardstick(csr):
+    """``torch.sparse.mm`` of the operator's CUDA CSR tensor with itself, the
+    library's SpGEMM: its seconds (CUDA events, the second of two calls)
+    and output nnz, or its error.  A yardstick only: no path of the port
+    calls it, so its failure is printed, not raised."""
+    try:
+        T = torch_csr(csr)
+        torch.sparse.mm(T, T)
+        out, _, secs = timed(lambda: torch.sparse.mm(T, T))
+        nnz = int(out._nnz())
+        del out, T
+        return f"{secs:.4f} s, out nnz {nnz}"
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:   # the library's own failure
+        return f"raised {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    finally:
+        torch.cuda.empty_cache()
+
+
+def gs_sweep_host(m, b, x):
+    """One Gauss–Seidel sweep row by row in f64 on the host: the reference's
+    update, x_i ← (b_i − Σ_{j≠i} a_ij x_j) / a_ii with the new x_j for j < i."""
+    m = m.tocsr().astype(np.float64)
+    x = np.array(x, np.float64)
+    diag = m.diagonal()
+    ip, ind, dat = m.indptr, m.indices, m.data
+    for i in range(m.shape[0]):
+        lo, hi = ip[i], ip[i + 1]
+        s = float(dat[lo:hi] @ x[ind[lo:hi]]) - diag[i] * x[i]
+        x[i] = (b[i] - s) / diag[i]
+    return x
+
+
+def algebra_phases(dev, g):
+    """Phases 25–28: the matrix algebra on the FEM operator, SpGEMM of the
+    circuit and of the FEM operator at full size (ESC path), and SOR /
+    Gauss–Seidel over the level schedule.  No CUDA kernel of the port runs
+    here: these are PyTorch ops on the card."""
+    t_start = time.perf_counter()
+    fem = matgen.fem_block_band(seed=SEED).astype(np.float32).tocsr()
+    fem.sort_indices()
+    circ = matgen.circuit_scatter(seed=SEED).astype(np.float32).tocsr()
+    circ.sort_indices()
+    A = tsm.CSR.from_scipy(fem, device=dev)
+    C = tsm.CSR.from_scipy(circ, device=dev)
+
+    # 25 -----------------------------------------------------------------------
+    secs = {}
+    At, _, secs["transpose"] = timed(lambda: tsm.transpose(A))
+    same_as_scipy(At, fem.T, "transpose")
+    S, _, secs["add(A, A.T)"] = timed(lambda: tsm.add(A, At))
+    same_as_scipy(S, fem + fem.T, "add(A, A.T)")
+    D, _, secs["sub(A, A.T)"] = timed(lambda: tsm.sub(A, At))
+    same_as_scipy(D, fem - fem.T, "sub(A, A.T)")
+    Z, _, secs["A - A"] = timed(lambda: A - A)
+    same_as_scipy(Z, fem - fem, "A - A")
+    check(Z.nse == 2 * A.nse and float(Z.data.abs().max()) == 0.0, "A - A: not all stored zeros")
+    sym_fem, _, secs["is_symmetric(FEM)"] = timed(lambda: bool(tsm.is_symmetric(A)))
+    bent = circ.copy()
+    bent.data[bent.indptr[1000]] += 1.0              # one value of row 1000 moved
+    B = tsm.CSR.from_scipy(bent, device=dev)
+    sym_circ, _, secs["is_symmetric(circuit, perturbed)"] = timed(
+        lambda: bool(tsm.is_symmetric(B)))
+    sym_circ_raw = bool(tsm.is_symmetric(C))
+    check(sym_fem and not sym_circ and not sym_circ_raw, "is_symmetric answers")
+    srt, _, secs["is_sorted"] = timed(lambda: bool(tsm.is_sorted(A)))
+    check(srt, "is_sorted(FEM)")
+    i_row = A.shape[0] // 2
+    row, _, secs["extract_row"] = timed(lambda: tsm.extract_row(A, i_row))
+    lo, hi = fem.indptr[i_row], fem.indptr[i_row + 1]
+    check(np.array_equal(row.indices, fem.indices[lo:hi])
+          and np.array_equal(row.vals, fem.data[lo:hi]), "extract_row")
+    say("25 algebra", f"FEM {A.shape[0]} rows, {A.n_non_zero_entries()} entries, f32: "
+        f"transpose, add(A, A.T), sub(A, A.T) and A - A equal to scipy (structure and "
+        f"values); is_symmetric FEM {sym_fem}, circuit {sym_circ_raw}, circuit with a "
+        f"value moved {sym_circ}; is_sorted {srt}; extract_row({i_row}) {row.nnz} entries; "
+        f"seconds (CUDA events): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
+    del At, S, D, Z, B
+
+    # 26 -----------------------------------------------------------------------
+    kb = C.max_row_nnz()
+    check(C.nse * kb > (1 << 25), "the circuit A·A would not take the ESC path")
+    out, wall_c, ev_c = timed(lambda: tsm.spgemm(C, C))
+    out2, wall_w, ev_w = timed(lambda: tsm.spgemm(C, C))
+    check(all(torch.equal(getattr(out, f), getattr(out2, f))
+              for f in ("indptr", "indices", "data", "row_ids")), "circuit A·A rerun differs")
+    t0 = time.perf_counter()
+    ref = circ @ circ
+    t_scipy = time.perf_counter() - t0
+    got = scipy_csr(out.prune(keep_zeros=False))
+    ref.sort_indices()
+    err = abs(got.astype(np.float64) - ref).max() if ref.nnz else 0.0
+    rel = err / abs(ref).max()
+    check(rel <= 1e-5, f"circuit A·A: rel err {rel:.3e} > 1e-5")
+    # scipy drops exact zeros; a coordinate whose sum cancels to 0 in one
+    # order only shows as a structure difference, and must be tiny
+    same = (np.array_equal(got.indptr, ref.indptr) and np.array_equal(got.indices, ref.indices))
+    apart = 0 if same else int(abs((got != 0).astype(np.int8) - (ref != 0).astype(np.int8)).sum())
+    check(apart <= 16, f"circuit A·A: {apart} coordinates differ from scipy's structure")
+    plan = tsm.ops.algebra.esc_plan(C, C)
+    say("26 spgemm circuit", f"A·A of {C.shape[0]} rows, {C.n_non_zero_entries()} entries "
+        f"(longest row {kb}): ESC, {plan.n_candidates} candidates in {plan.n_parts} part(s); "
+        f"out nse {out.nse} ({got.nnz} nonzero), structure equal to scipy's "
+        f"{'exactly' if same else f'but for {apart} cancelled sums'}, values rel err "
+        f"{rel:.2e}; rerun bitwise equal; cold {wall_c:.4f} s wall ({ev_c:.4f} events), warm "
+        f"{wall_w:.4f} s wall ({ev_w:.4f} events), {out.nse / wall_w / 1e6:.1f} M out-nnz/s "
+        f"warm; scipy A @ A on the host {t_scipy:.4f} s; torch.sparse.mm "
+        f"{sparse_mm_yardstick(C)}")
+    del out, out2
+
+    # 27 -----------------------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    plan, plan_s, _ = timed(lambda: tsm.ops.algebra.esc_plan(A, A))
+    check(plan.n_candidates == FEM_CANDIDATES, f"FEM candidates {plan.n_candidates}")
+    widest = int(max(plan.cand_ptr[b] - plan.cand_ptr[a]
+                     for a, b in zip(plan.row_cuts[:-1], plan.row_cuts[1:])))
+    n_parts = plan.n_parts
+    del plan
+    P, wall_c, ev_c = timed(lambda: tsm.spgemm(A, A))
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    P2, wall_w, ev_w = timed(lambda: tsm.spgemm(A, A))
+    check(all(torch.equal(getattr(P, f), getattr(P2, f))
+              for f in ("indptr", "indices", "data", "row_ids")), "FEM A·A rerun differs")
+    del P2
+    v = torch.randn(A.shape[1], generator=g, device=dev)
+    cv = tsm.spmv(P, v)
+    rv = tsm.spmv(A, tsm.spmv(A, v))
+    e_probe = compare(None, cv, rv, 1e-4, "FEM A·A probe C·v vs A·(A·v)")
+    nse = P.nse
+    del P
+    say("27 spgemm fem", f"A·A of {A.shape[0]} rows, {A.n_non_zero_entries()} entries: ESC, "
+        f"{FEM_CANDIDATES} candidates in {n_parts} parts of at most "
+        f"{tsm.ops.algebra._SPGEMM_PART_SLOTS} (the largest {widest}); plan {plan_s:.4f} s; "
+        f"cold {wall_c:.4f} s wall ({ev_c:.4f} events), expand/sort/compress "
+        f"{wall_c - plan_s:.4f} s; warm {wall_w:.4f} s wall ({ev_w:.4f} events), expand/sort/"
+        f"compress {wall_w - plan_s:.4f} s; out nse {nse}, {nse / wall_w / 1e6:.1f} M "
+        f"out-nnz/s warm; probe C·v vs A·(A·v) rel err {e_probe:.2e}; rerun bitwise equal; "
+        f"peak device memory {peak / 2**30:.2f} GiB above the operand; torch.sparse.mm "
+        f"{sparse_mm_yardstick(A)}")
+    torch.cuda.empty_cache()
+
+    # 28 -----------------------------------------------------------------------
+    rows, cols, vals, n, _ = fem_triplets()
+    spd = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    spd.sum_duplicates()
+    spd.sort_indices()
+    S = tsm.CSR.from_scipy(spd, device=dev)
+    b = tsm.spmv(S, torch.randn(n, generator=g, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    (x1, _), sched_s, _ = timed(lambda: solvers.gauss_seidel(S, b, x0, maxiter=1))
+    sched = solvers.sor_schedule(S)
+    want = gs_sweep_host(spd, b.double().cpu().numpy(), np.zeros(n))
+    e_sweep = compare(None, x1.cpu(), torch.from_numpy(want), 1e-5,
+                      "FEM Gauss-Seidel sweep vs host")
+    kern = [len(device_kernels(lambda: solvers.gauss_seidel(S, b, x0, maxiter=k)))
+            for k in (1, 2)]
+    (x20, info20), wall20, _ = timed(lambda: solvers.gauss_seidel(S, b, x0, tol=0.0,
+                                                                   maxiter=20))
+    check(int(info20.iterations) == 20, "20 sweeps")
+    r20, bn = host_residual(S, x20, b)
+    r0 = float(np.linalg.norm(b.double().cpu().numpy()))
+    x20b, _ = solvers.gauss_seidel(S, b, x0, tol=0.0, maxiter=20)
+    check(torch.equal(x20b, x20), "FEM Gauss-Seidel rerun differs")
+    say("28 sor", f"FEM SPD {n} rows: level schedule {sched.n_levels} levels (widest "
+        f"{max(b_ - a_ for a_, b_ in zip(sched.row_ptr[:-1], sched.row_ptr[1:]))} rows), "
+        f"first solve with its schedule {sched_s:.4f} s; one Gauss-Seidel sweep vs the host "
+        f"row loop (f64) rel err {e_sweep:.2e}; 20 sweeps {wall20 / 20 * 1e3:.2f} ms a sweep "
+        f"with its residual, {kern[1] - kern[0]} device kernels a sweep ({kern[0]} in a "
+        f"1-sweep solve); true residual (f64 host) {r20:.4e} of ‖b‖ {bn:.4e} (x0 = 0: "
+        f"{r0:.4e}); rerun bitwise equal")
+    pr, pc, pv = poisson_triplets(128)
+    lap = sp.csr_matrix((pv, (pr, pc)))                  # 128² rows
+    bp = np.random.default_rng(SEED).standard_normal(lap.shape[0])
+    P_dev = tsm.CSR.from_scipy(lap, device=dev)
+    P_cpu = tsm.CSR.from_scipy(lap, device="cpu")
+    b_dev = torch.from_numpy(bp).to(dev)
+    (xs, info), t_dev, _ = timed(lambda: solvers.sor(P_dev, b_dev, rtol=1e-6, maxiter=10_000,
+                                                       omega=1.9))
+    check(bool(info.converged), f"128² SOR did not converge in {int(info.iterations)}")
+    t0 = time.perf_counter()
+    xc, info_c = solvers.sor(P_cpu, torch.from_numpy(bp), rtol=1e-6, maxiter=10_000, omega=1.9)
+    t_cpu = time.perf_counter() - t0
+    check(int(info.iterations) == int(info_c.iterations),
+          f"128² SOR iterations {int(info.iterations)} on the card, {int(info_c.iterations)} "
+          "on the CPU path")
+    e_cpu = compare(None, xs.cpu(), xc, 1e-5, "128² SOR card vs CPU path")
+    xs2, info2 = solvers.sor(P_dev, b_dev, rtol=1e-6, maxiter=10_000, omega=1.9)
+    check(torch.equal(xs2, xs) and int(info2.iterations) == int(info.iterations),
+          "128² SOR rerun differs")
+    r_true = np.linalg.norm(bp - lap @ xs.cpu().numpy()) / np.linalg.norm(bp)
+    say("28 sor", f"128² Poisson f64, omega 1.9, rtol 1e-6: {int(info.iterations)} sweeps "
+        f"({solvers.sor_schedule(P_dev).n_levels} levels), {t_dev:.3f} s on the card "
+        f"({t_dev / int(info.iterations) * 1e3:.2f} ms a sweep), the CPU path {t_cpu:.3f} s "
+        f"with the same count, iterate rel err {e_cpu:.2e}; true relative residual "
+        f"{r_true:.2e}; rerun bitwise equal")
+    say("25-28 total", f"{time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2213,6 +2478,7 @@ def main():
     route_phases(dev, g, times, launches)
     spmm_phases(dev, g, times, launches)
     general_phases(dev, g, times, launches, csr)
+    algebra_phases(dev, g)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -21,7 +21,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from .types import DEFAULT_INDEX_DTYPE, as_torch_dtype, host_dtype, resolve_device
+from .types import (DEFAULT_INDEX_DTYPE, check_index_dtype, check_value_dtype, host_dtype,
+                    resolve_device)
 from .vectors import SparseVec
 
 
@@ -153,8 +154,8 @@ class SparseBuilder:
 
         lib = get_lib()
         self._store = _NativeStore(lib, capacity) if lib is not None else _PyStore(capacity)
-        self.dtype = as_torch_dtype(dtype)
-        self.index_dtype = as_torch_dtype(index_dtype)
+        self.dtype = check_value_dtype(dtype)
+        self.index_dtype = check_index_dtype(index_dtype)
         self._np_dtype = host_dtype(self.dtype)
         self._fixed_shape = tuple(shape) if shape is not None else None
         self._column_info_fresh = False

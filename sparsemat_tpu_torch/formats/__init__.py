@@ -6,8 +6,8 @@ for skewed rows), ``BSR`` (dense blocks, the SpMM format), ``StripELL``
 ``SlabStream`` (window-bucketed slabs for the same class), ``WELL``
 (windowed ELL, the general-matrix format), ``RouteStream`` (globally
 scattered, the circuit class) and ``GELL`` (the scatter-free gather ladder);
-and ``auto_format``, which picks among them.  The JAX package's host-side
-``RowVec`` is not ported."""
+``auto_format``, which picks among them; and ``RowVec``, the host-side
+ragged assembly format that freezes to CSR or COO."""
 
 import numpy as np
 
@@ -19,13 +19,15 @@ from .dia import DIA
 from .ell import ELL
 from .gell import GELL
 from .route import RouteStream
+from .rowvec import RowVec
 from .sell import SELL
 from .slab import SLAB_ROW_BLOCK, SUBLANE, WINDOW, SlabELL, SlabPack, SlabStream
 from .strip import StripELL, StripPart
 from .well import WELL
 
 __all__ = ["SparseFormat", "COO", "CSR", "DIA", "ELL", "SELL", "BSR", "GELL", "RouteStream",
-           "StripELL", "StripPart", "SlabELL", "SlabPack", "SlabStream", "WELL", "auto_format"]
+           "StripELL", "StripPart", "SlabELL", "SlabPack", "SlabStream", "WELL", "RowVec",
+           "auto_format"]
 
 
 def auto_format(mat, *, max_diags: int = 48, max_ell_waste: float = 2.0,

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..types import accum_dtype, as_torch_dtype
+from ..types import accum_dtype, as_torch_dtype, compute_index_dtype
 
 Shape = Tuple[int, int]
 
@@ -39,7 +39,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class SparseFormat:
-    """Mixin providing the operator surface (``@``, ``*`` by a scalar,
+    """Mixin providing the operator surface (``@`` with a vector, a dense
+    matrix or a sparse matrix, ``+``, ``-``, ``*`` by a scalar, ``T``,
     ``mvp``) and the structure queries every format shares."""
 
     shape: Shape
@@ -140,10 +141,10 @@ class SparseFormat:
 
     # -- algebra ----------------------------------------------------------------
     def __matmul__(self, other):
-        from ..ops import spmm, spmv
+        from ..ops import spgemm, spmm, spmv
 
         if isinstance(other, SparseFormat):
-            raise NotImplementedError("sparse @ sparse (spgemm) is not ported yet")
+            return spgemm(self, other)
         other = torch.as_tensor(other)
         if other.dim() == 1:
             return spmv(self, other)
@@ -157,6 +158,16 @@ class SparseFormat:
 
         return spmv(self, torch.as_tensor(x))
 
+    def __add__(self, other):
+        from ..ops import add
+
+        return add(self, other)
+
+    def __sub__(self, other):
+        from ..ops import sub
+
+        return sub(self, other)
+
     def __mul__(self, scalar):
         return self.scale(scalar)
 
@@ -165,6 +176,17 @@ class SparseFormat:
 
     def scale(self, scalar):
         raise NotImplementedError
+
+    @property
+    def T(self):
+        from ..ops import transpose
+
+        return transpose(self)
+
+    def transpose(self):
+        from ..ops import transpose
+
+        return transpose(self)
 
     def inner_prod(self, l, r):
         """Bilinear form lᵀ A r (``ops.inner_prod``)."""
@@ -260,10 +282,6 @@ class SparseFormat:
 
 # --- canonicalization helpers (tensor ops, any device) ------------------------
 
-def _index_compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    return torch.int32 if dtype.itemsize < 4 else dtype
-
-
 def sort_coo(rows, cols, vals, shape: Shape):
     """Sort COO triplets into canonical row-major, column-sorted order.
     One stable sort on the fused key ``row·(n_cols+1) + col`` (fits int64
@@ -310,7 +328,7 @@ def rows_to_indptr(rows, n_rows: int, index_dtype=None):
                             minlength=n_rows + 1)[:n_rows]
     indptr = torch.cat([torch.zeros(1, dtype=counts.dtype, device=rows.device),
                         torch.cumsum(counts, 0)])
-    dt = index_dtype if index_dtype is not None else _index_compute_dtype(rows.dtype)
+    dt = index_dtype if index_dtype is not None else compute_index_dtype(rows.dtype)
     return indptr.to(as_torch_dtype(dt))
 
 

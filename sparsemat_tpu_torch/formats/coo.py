@@ -113,3 +113,25 @@ class COO(SparseFormat):
 
     def scale(self, scalar) -> "COO":
         return dataclasses.replace(self, vals=self.vals * scalar)
+
+    def prune(self, keep_zeros: bool = True) -> "COO":
+        """The entries without tail padding (and, with ``keep_zeros=False``,
+        without stored zeros), on the same device."""
+        keep = self.rows.long() < self.n_rows
+        if not keep_zeros:
+            keep &= self.vals != 0
+        return COO(rows=self.rows[keep], cols=self.cols[keep], vals=self.vals[keep],
+                   shape=self.shape, canonical=self.canonical)
+
+    def with_padding_to(self, nse: int) -> "COO":
+        """The same entries with tail padding up to ``nse`` slots."""
+        extra = nse - self.nse
+        if extra < 0:
+            raise ValueError(f"cannot shrink from {self.nse} to {nse}; use prune()")
+        if extra == 0:
+            return self
+        r = self.rows
+        return COO(rows=torch.cat([r, r.new_full((extra,), self.n_rows)]),
+                   cols=torch.cat([self.cols, self.cols.new_zeros(extra)]),
+                   vals=torch.cat([self.vals, self.vals.new_zeros(extra)]),
+                   shape=self.shape, canonical=self.canonical)

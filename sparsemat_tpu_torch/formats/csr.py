@@ -3,7 +3,9 @@
 
 Rows are always column-sorted.  ``row_ids`` (the expanded per-entry row
 index) is computed at freeze time, as in the JAX package, so the two
-packages' frozen arrays can be compared one to one.
+packages' frozen arrays can be compared one to one.  Row and column access
+(``get_row``, ``iter_row``, ``iter_col``) runs on the host through the
+host-array cache.
 """
 
 from __future__ import annotations
@@ -192,3 +194,63 @@ class CSR(SparseFormat):
         on_diag = (rid == self.indices.long()) & (rid < self.n_rows)
         d = torch.zeros(self.n_rows, dtype=self.data.dtype, device=self.data.device)
         return d.index_add_(0, rid[on_diag], self.data[on_diag])
+
+    def prune(self, keep_zeros: bool = True) -> "CSR":
+        """The same matrix without tail padding (and, with
+        ``keep_zeros=False``, without stored zeros)."""
+        return self.to_coo().prune(keep_zeros=keep_zeros).to_csr()
+
+    # -- row and column access ------------------------------------------------------
+    def get_row_dense(self, i: int) -> torch.Tensor:
+        """Row i as a dense vector on the matrix's device."""
+        ip = self.host("indptr")
+        s, e = int(ip[i]), int(ip[i + 1])
+        out = torch.zeros(self.n_cols, dtype=self.data.dtype, device=self.device)
+        return out.index_put_((self.indices[s:e].long(),), self.data[s:e], accumulate=True)
+
+    def get_row(self, i: int):
+        """Row i as a ``SparseVec`` (host arrays)."""
+        from ..vectors import SparseVec
+
+        ip = self.host("indptr")
+        s, e = int(ip[i]), int(ip[i + 1])
+        return SparseVec(indices=self.host("indices")[s:e].copy(),
+                         vals=self.host("data")[s:e].copy(), dim=self.n_cols)
+
+    def iter_row(self, i: int):
+        """(col, val) pairs of row i, column-sorted; a row out of range
+        yields nothing."""
+        if i < 0 or i >= self.n_rows:
+            return
+        indptr = self.host("indptr")
+        indices = self.host("indices")
+        data = self.host("data")
+        for p in range(int(indptr[i]), int(indptr[i + 1])):
+            yield int(indices[p]), data[p]
+
+    def assemble_column_info(self) -> "CSR":
+        """Build the column view (a host CSC) that ``iter_col`` reads.  A CSR
+        never changes, so the view never goes stale.  Returns self."""
+        if self.__dict__.get("_col_info") is None:
+            indptr = self.host("indptr").astype(np.int64)
+            indices = self.host("indices").astype(np.int64)
+            data = self.host("data")
+            nnz = int(indptr[-1])
+            rows = np.repeat(np.arange(self.n_rows, dtype=np.int64), np.diff(indptr))
+            order = np.lexsort((rows, indices[:nnz]))
+            col_ptr = np.concatenate(
+                [[0], np.cumsum(np.bincount(indices[:nnz], minlength=self.n_cols))])
+            object.__setattr__(self, "_col_info", (col_ptr, rows[order], data[:nnz][order]))
+        return self
+
+    def iter_col(self, j: int):
+        """(row, val) pairs of column j in ascending row order.  Raises
+        unless ``assemble_column_info`` ran first."""
+        info = self.__dict__.get("_col_info")
+        if info is None:
+            raise RuntimeError("column info is stale — call assemble_column_info() first")
+        col_ptr, rows, vals = info
+        if j < 0 or j >= self.n_cols:
+            return
+        for p in range(int(col_ptr[j]), int(col_ptr[j + 1])):
+            yield int(rows[p]), vals[p]

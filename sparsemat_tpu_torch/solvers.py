@@ -1,9 +1,9 @@
 """Iterative solvers and preconditioners (counterpart of
 ``sparsemat_tpu/solvers.py``): CG / PCG, BiCGStab, restarted GMRES,
-Chebyshev, (weighted) Jacobi, mixed-precision refinement (``refine``,
+Chebyshev, (weighted) Jacobi, SOR / Gauss–Seidel (``sor``,
+``gauss_seidel``), mixed-precision refinement (``refine``,
 ``refine_host``), the Jacobi and block-Jacobi preconditioners, and the class
-wrappers.  ``sor``/``gauss_seidel`` are not ported yet: their sweep is a
-sequential row scan that needs its own GPU design.
+wrappers.
 
 The reference compiles each iteration into one ``lax.while_loop``, with no
 host round-trip per iteration.  Here ``_while`` runs the loop body in fixed
@@ -93,14 +93,15 @@ def _threshold(b, tol, rtol):
                          rtol * torch.sqrt(_dot(b, b)))
 
 
-def _while(cond, body, state: dict, maxiter: int, on_step=None) -> dict:
+def _while(cond, body, state: dict, maxiter: int, on_step=None,
+           every: int = SYNC_EVERY) -> dict:
     """``lax.while_loop(cond, body, state)`` on the device for a loop whose
-    condition includes ``k < maxiter``: steps run in blocks of
-    ``SYNC_EVERY``, each committed only where ``cond`` held, and the host
-    reads ``cond`` once per block.  ``on_step(active, new)`` sees every
-    step (for histories)."""
-    for _ in range(-(-max(int(maxiter), 0) // SYNC_EVERY)):
-        for _ in range(SYNC_EVERY):
+    condition includes ``k < maxiter``: steps run in blocks of ``every``,
+    each committed only where ``cond`` held, and the host reads ``cond``
+    once per block.  ``on_step(active, new)`` sees every step (for
+    histories)."""
+    for _ in range(-(-max(int(maxiter), 0) // every)):
+        for _ in range(every):
             active = cond(state)
             new = body(state)
             if on_step is not None:
@@ -363,6 +364,169 @@ def jacobi(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     res = torch.sqrt(out["rr"])
     return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
                                converged=res < threshold)
+
+
+# --- Gauss-Seidel / SOR ------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SorSchedule:
+    """A matrix's rows in levels for the SOR sweep.  Every row that row i
+    reads new (a stored a_ij, j < i) lies in an earlier level than i, so
+    the rows of one level update at once.  ``perm`` lists the rows level
+    by level (ascending within a level); level l is ``perm[row_ptr[l]:
+    row_ptr[l + 1]]``.  Its rows' CSR entries, row by row, are
+    ``[entry_ptr[l], entry_ptr[l + 1])`` of ``entries`` (positions in the
+    CSR), ``src`` and ``diag_slot``; ``seg_ptr[row_ptr[l] + l :
+    row_ptr[l + 1] + l + 1]`` are the level's row offsets into them, from
+    0.  ``src`` indexes a buffer of 2n: the new x where the column is below
+    the row, n + the column (the old x) elsewhere; ``diag_slot`` marks the
+    diagonal entries."""
+
+    perm: torch.Tensor
+    entries: torch.Tensor
+    src: torch.Tensor
+    diag_slot: torch.Tensor
+    seg_ptr: torch.Tensor
+    row_ptr: tuple
+    entry_ptr: tuple
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.row_ptr) - 1
+
+
+def _ranges(starts, counts):
+    """Concatenated [s, s + c) for each pair (host int64 arrays)."""
+    total = int(counts.sum())
+    off = np.repeat(starts - np.cumsum(counts) + counts, counts)
+    return off + np.arange(total, dtype=np.int64)
+
+
+def sor_levels(indptr, indices) -> list:
+    """Rows in dependency levels over the strictly lower triangle of a CSR
+    (host arrays): level 0 holds the rows with no entry left of the
+    diagonal, level l + 1 the rows whose last such dependency is in level
+    l (each level ascending)."""
+    ip = np.asarray(indptr, np.int64)
+    n = ip.shape[0] - 1
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(ip))
+    cols = np.asarray(indices[: ip[-1]], np.int64)
+    low = cols < rows
+    waiter, dep = rows[low], cols[low]
+    indeg = np.bincount(waiter, minlength=n)
+    waiters = waiter[np.argsort(dep, kind="stable")]
+    wptr = np.concatenate([[0], np.cumsum(np.bincount(dep, minlength=n))])
+    levels = []
+    frontier = np.flatnonzero(indeg == 0)
+    while frontier.size:
+        levels.append(frontier)
+        released = waiters[_ranges(wptr[frontier], wptr[frontier + 1] - wptr[frontier])]
+        rel, cnt = np.unique(released, return_counts=True)
+        indeg[rel] -= cnt
+        frontier = rel[indeg[rel] == 0]
+    return levels
+
+
+def sor_schedule(csr) -> SorSchedule:
+    """The level schedule of a CSR, built on the host once and cached on
+    it (a frozen matrix never changes)."""
+    sched = csr.__dict__.get("_sor_schedule")
+    if sched is not None:
+        return sched
+    ip = csr.host("indptr").astype(np.int64)
+    indices = csr.host("indices")
+    n = csr.n_rows
+    levels = sor_levels(ip, indices)
+    perm = np.concatenate(levels) if levels else np.zeros(0, np.int64)
+    lengths = ip[perm + 1] - ip[perm]
+    entries = _ranges(ip[perm], lengths)
+    cols = indices[entries].astype(np.int64)
+    rows = np.repeat(perm, lengths)
+    row_ptr = np.concatenate([[0], np.cumsum([lv.size for lv in levels])]).astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(lengths)])
+    seg_ptr = np.concatenate([cum[r0:r1 + 1] - cum[r0]
+                              for r0, r1 in zip(row_ptr[:-1], row_ptr[1:])] or [np.zeros(0)])
+    dev = csr.device
+    sched = SorSchedule(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            perm, entries, np.where(cols < rows, cols, n + cols), cols == rows,
+            seg_ptr.astype(np.int64))),
+        row_ptr=tuple(row_ptr.tolist()), entry_ptr=tuple(cum[row_ptr].tolist()))
+    object.__setattr__(csr, "_sor_schedule", sched)
+    return sched
+
+
+def sor(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
+        maxiter: int = 1_000, omega: float = 1.0):
+    """Successive over-relaxation (ω = 1: Gauss–Seidel).  A sweep updates
+    rows 0…n−1 in order: row i reads the new x_j for j < i and the old x_j
+    elsewhere, x_i ← (1−ω)·x_i + ω·(b_i − Σ_{j≠i} a_ij·x_j)/a_ii (0 where
+    a_ii is 0).  Here a sweep walks the matrix's level schedule
+    (``sor_schedule``): each level is one gather of x over its rows' CSR
+    entries, a product and a segment sum per row, and one update of its
+    rows (five to seven launches a level).  The gather reads a buffer
+    holding the sweep's new x and its old x side by side, so a row j > i
+    that falls in an earlier level than i (a_ji = 0) still reaches row i
+    old.  The iterate is the row-by-row sweep's up to summation order.
+    After each sweep the residual ‖b − A·x‖ is checked against
+    max(tol, rtol·‖b‖)."""
+    b = _check_operands(A, b)
+    if not hasattr(A, "to_csr"):
+        raise TypeError("sor needs a sparse format")
+    if A.shape[0] != A.shape[1]:
+        raise ValueError(f"sor requires a square matrix, got {A.shape}")
+    from .ops import spmv
+
+    csr = A.to_csr()
+    sched = sor_schedule(csr)
+    n = A.shape[0]
+    diag = csr.diagonal().to(b.dtype)
+    dinv = torch.where(diag != 0, 1.0 / diag, 0.0)
+    # everything a level reads, in level order, sliced once per solve: the
+    # off-diagonal values (the diagonal's slot holds 0), ω/a_ii, ω·b_i/a_ii
+    # and the old x_i's place in the buffer
+    rows = sched.perm
+    vals = csr.data[sched.entries].to(b.dtype).masked_fill(sched.diag_slot, 0)
+    wdinv = omega * dinv[rows]
+    wdb = wdinv * b[rows]
+    old = rows + n
+    levels = [(rows[r0:r1], old[r0:r1], sched.src[e0:e1], vals[e0:e1],
+               sched.seg_ptr[r0 + k:r1 + k + 1], wdinv[r0:r1], wdb[r0:r1])
+              for k, (r0, r1, e0, e1) in enumerate(zip(sched.row_ptr[:-1], sched.row_ptr[1:],
+                                                       sched.entry_ptr[:-1],
+                                                       sched.entry_ptr[1:]))]
+
+    def sweep(x):
+        X = torch.cat([x, x])           # [new | old]
+        for rows_l, old_l, src_l, vals_l, seg_l, wdinv_l, wdb_l in levels:
+            s = torch.segment_reduce(vals_l * X[src_l], "sum", offsets=seg_l, unsafe=True)
+            # x_i ← (1−ω)·x_i + ω·(b_i − s_i)/a_ii, s_i = Σ_{j≠i} a_ij·x_j
+            base = wdb_l if omega == 1 else torch.add(wdb_l, X[old_l], alpha=1 - omega)
+            X.index_copy_(0, rows_l, torch.addcmul(base, wdinv_l, s, value=-1))
+        return X[:n]
+
+    threshold = _threshold(b, tol, rtol)
+    thresh2 = threshold * threshold
+    state = dict(x=_x0(b, x0), k=_int32(0, b.device),
+                 rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+
+    def cond(s):
+        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+
+    def body(s):
+        x = sweep(s["x"])
+        r = b - spmv(A, x)
+        return dict(x=x, k=s["k"] + 1, rr=_dot(r, r))
+
+    # a sweep is many launches, so the host reads the condition after each
+    out = _while(cond, body, state, maxiter, every=1)
+    res = torch.sqrt(out["rr"])
+    return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
+                               converged=res < threshold)
+
+
+def gauss_seidel(A, b, x0=None, **kw):
+    return sor(A, b, x0, omega=1.0, **kw)
 
 
 # --- mixed-precision iterative refinement ------------------------------------

@@ -19,3 +19,15 @@ real_default_device = types.default_device
 @pytest.fixture(autouse=True)
 def port_on_cpu(monkeypatch):
     monkeypatch.setattr(types, "default_device", lambda: torch.device("cpu"))
+
+
+class LazyModule:
+    """A module imported at its first attribute read, inside a test, and the
+    test skipped where it is missing: a file that reaches the JAX package
+    through one collects where JAX is not installed (the card's machine)."""
+
+    def __init__(self, name):
+        self._name = name
+
+    def __getattr__(self, attr):
+        return getattr(pytest.importorskip(self._name), attr)

@@ -1,8 +1,11 @@
 """The reference library's golden values through the port's formats: the
 SpMV values 34.544 and 20.16 and the densities 6/9 and 5/16 (the same
 matrices as ``tests/test_golden.py``), the builder's set/add_to sequence
-that makes the 3×3 matrix, and the vector types.  Tolerance rel 1e-6: f32
-sums of three terms."""
+that makes the 3×3 matrix, the vector types, and the algebra's goldens:
+SpGEMM ``get(1, 2) == 17.9632``, the dimension guard, the cross-format add
+(row 1 ``[0, 4.48, 8.24]``), the transpose round trip, ``is_symmetric``
+and the operators ``+``, ``-``.  Tolerance rel 1e-6: f32 sums of three
+terms."""
 
 import numpy as np
 import pytest
@@ -110,3 +113,48 @@ def test_densevec_and_norms():
     assert float(tsm.vectors.inner_prod(t, t)) == pytest.approx(5.25)
     assert float(tsm.norm(t)) == pytest.approx(5.25 ** 0.5)
     assert float(tsm.norm_squared(torch.ones(4, dtype=torch.bfloat16))) == 4.0
+
+
+# -- the algebra (tests/test_golden.py's operator and algebra goldens) ------------------
+
+def test_operator_overloads_golden():
+    sp = build_indexlist_matrix("csr")
+    total = sp + sp
+    assert total.get(0, 0) == pytest.approx(14.24, rel=1e-6)
+    assert (total - sp).get(0, 0) == pytest.approx(sp.get(0, 0), rel=1e-6)
+    assert (sp * 2.0).get(0, 0) == pytest.approx(total.get(0, 0), rel=1e-6)
+
+
+@pytest.mark.parametrize("kw", [{}, {"max_fanout_slots": 1}], ids=["oneshot", "esc"])
+def test_spgemm_golden(kw):
+    sp = build_indexlist_matrix("coo")
+    mp = tsm.spgemm(sp.to_csr(), sp, **kw)
+    assert mp.get(1, 2) == pytest.approx(17.9632, rel=1e-6)
+    dense = sp.todense().numpy()
+    np.testing.assert_allclose(mp.todense().numpy(), dense @ dense, rtol=1e-6)
+    np.testing.assert_allclose((sp.to_csr() @ sp).todense().numpy(), dense @ dense, rtol=1e-6)
+
+
+def test_spgemm_dimension_guard():
+    a = tsm.COO.from_arrays(np.array([0]), np.array([1]), np.array([1.0]), (2, 3))
+    b = tsm.COO.from_arrays(np.array([0]), np.array([1]), np.array([1.0]), (2, 3))
+    with pytest.raises(tsm.DimensionError):
+        tsm.spgemm(a, b)
+
+
+def test_cross_format_add_golden():
+    s = tsm.add(build_indexlist_matrix("coo"), build_indexlist_matrix("csr"))
+    np.testing.assert_allclose(s.todense().numpy()[1], [0.0, 4.48, 8.24], rtol=1e-6)
+
+
+def test_transpose_roundtrip_golden():
+    sp = build_crs_matrix("csr")
+    t = tsm.transpose(sp)
+    np.testing.assert_allclose(t.todense().numpy(), sp.todense().numpy().T, rtol=1e-6)
+    np.testing.assert_allclose(tsm.transpose(t).todense().numpy(), sp.todense().numpy(),
+                               rtol=1e-6)
+
+
+def test_is_symmetric_golden():
+    assert bool(tsm.is_symmetric(tsm.from_dense(np.array([[4.0, 1.0], [1.0, 3.0]]))))
+    assert not bool(tsm.is_symmetric(tsm.from_dense(np.array([[4.0, 1.0], [2.0, 3.0]]))))

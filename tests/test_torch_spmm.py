@@ -153,8 +153,9 @@ def test_matmul_with_a_rank_2_operand():
         assert torch.equal(mat @ torch.from_numpy(B), tsm.spmm(mat, torch.from_numpy(B)))
         assert rel_err(mat @ B, jsm.CSR.from_scipy(m) @ jnp.asarray(B)) < 1e-5
     csr = tsm.CSR.from_scipy(m)
-    with pytest.raises(NotImplementedError, match="spgemm"):
-        csr @ csr
+    prod = csr @ csr                              # sparse @ sparse is SpGEMM
+    assert torch.equal(prod.data, tsm.spgemm(csr, csr).data)
+    assert rel_err(prod.todense(), (m @ m).toarray()) < 1e-5
     with pytest.raises(ValueError, match="rank 3"):
         csr @ torch.zeros(300, 2, 2)
 

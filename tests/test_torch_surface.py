@@ -23,20 +23,9 @@ FORMATS = ["dia", "csr", "coo", "ell", "sell", "bsr", "slab", "slab_pack", "slab
            "strip", "route", "well", "gell"]
 
 #: top-level names of the JAX package that the port does not have yet, each
-#: still listed in ROADMAP.md's Queue 1: RowVec (item 4), PartitionedBuilder
-#: (item 6) and the matrix algebra of ``ops/algebra.py`` (item 3)
+#: still listed in ROADMAP.md's Queue 1: PartitionedBuilder (item 6)
 NOT_PORTED = {
-    "RowVec": "Queue 1 item 4, formats/rowvec.py",
     "PartitionedBuilder": "Queue 1 item 6, distribution",
-    "DimensionError": "Queue 1 item 3, the algebra",
-    "add": "Queue 1 item 3, the algebra",
-    "sub": "Queue 1 item 3, the algebra",
-    "transpose": "Queue 1 item 3, the algebra",
-    "spgemm": "Queue 1 item 3, the algebra",
-    "is_symmetric": "Queue 1 item 3, the algebra",
-    "is_sorted": "Queue 1 item 3, the algebra",
-    "is_sorted_row": "Queue 1 item 3, the algebra",
-    "extract_row": "Queue 1 item 3, the algebra",
 }
 
 
