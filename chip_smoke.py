@@ -33,6 +33,10 @@ and SlabPack of the same CSR) → PCG(Jacobi); auto_format on the Poisson,
 FEM and circuit operators.  Last, the matrix algebra on the FEM operator,
 SpGEMM (A·A of the circuit operator and of the FEM operator at full size,
 through spgemm's ESC path) and SOR / Gauss-Seidel over the level schedule.
+Then the distribution layer (sparsemat_tpu_torch.parallel) at a world of
+one rank under NCCL: the Poisson operator through DistDIA into CG, and the
+FEM operator through DistCSR, DistELL, DistCSRSubset and DistSlab, each
+rank's product on the same CUDA kernels.
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1 device      the card, and nvidia-smi's name and power limit
@@ -203,6 +207,25 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 in f64 to rtol 1e-6 on the card and on the CPU path of the
                 port (equal iteration counts, iterates within rel 1e-5),
                 rerun bitwise; and the seconds of phases 25-28
+ 29 partition   PartitionedBuilder (4 blocks) assembles the 2048² Poisson
+                operator, its CSR on the card bitwise equal to SparseBuilder's;
+                make_mesh() on the card (a world of one rank under NCCL) and
+                process_info(); dryrun_multichip(1), the JAX package's six
+                multichip checks, on the card
+ 30 dist        the distribution layer at a world of one: DistDIA on the 2048²
+                Poisson operator (SpMV against spmv(DIA) and the plain DIA
+                SpMV; 200 CG iterations against phase 4's CG, the true
+                residual in f64 on the host; iterations/s in turns with phase
+                4's CG), DistCSR, DistELL, DistCSRSubset and DistSlab (rb 128)
+                on the FEM SPD operator of phase 10 (SpMV against spmv(CSR)
+                and scipy; 200 CG iterations through DistSlab and
+                DistCSRSubset against the CG over the CSR); each shard product
+                against its plain version (the plain DIA SpMV, the walk of
+                the shard's plan, the plain slab SpMV); every distributed
+                SpMV and CG rerun bitwise; the dia_spmv, slab_spmv and dist_*
+                launch counters must grow; the host seconds of each
+                distribute_* and of its plan; each shard product timed
+                against its plain version, its bound and torch.mv
 Phases 25-28 run no CUDA kernel of the port: SpGEMM, the algebra and the
 SOR sweep are PyTorch ops on the card, as the reference has no TPU kernel
 there.
@@ -223,7 +246,9 @@ Then a JSON line of the kernels and, last, the device JSON line.
 ``python3 chip_smoke.py --profile`` runs instead a torch.profiler trace of
 64 CG iterations through the kernels at 512² and 2048², of 64 PCG(Jacobi)
 iterations on the FEM StripELL and SlabStream and of 64 BiCGStab iterations
-on the circuit RouteStream (the merge-path kernel), and prints the device time per iteration by
+on the circuit RouteStream (the merge-path kernel) and of 64 CG iterations
+through DistDIA at 2048² (a world of one rank under NCCL, its collectives
+included), and prints the device time per iteration by
 kernel (and of each path's SpMV kernel on a line of its own), the device
 kernels launched per iteration and the device's busy share of wall time.
 
@@ -253,7 +278,7 @@ import scipy.sparse as sp
 import torch
 
 import sparsemat_tpu_torch as tsm
-from sparsemat_tpu_torch import checkpoint, matgen, solvers
+from sparsemat_tpu_torch import checkpoint, matgen, parallel, solvers
 from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch.kernels import _rowgroup as krg
 from sparsemat_tpu_torch.kernels import dia as kd
@@ -263,6 +288,8 @@ from sparsemat_tpu_torch.kernels import spmm as ksp
 from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.kernels import well as kw
 from sparsemat_tpu_torch.native import get_lib
+from sparsemat_tpu_torch.parallel import dist as pdist
+from sparsemat_tpu_torch.parallel.dryrun import dryrun_multichip
 
 #: kernel → (its source, the TPU kernel it replaces)
 _DIA_CU = "sparsemat_tpu_torch/csrc/dia.cu"
@@ -281,7 +308,14 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "slab_spmm": ("sparsemat_tpu_torch/csrc/spmm.cu",
                          "sparsemat_tpu/kernels/spmm.py:204, sparsemat_tpu/kernels/spmm.py:301"),
            "well_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
-           "slab_stream_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:320")}
+           "slab_stream_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:320"),
+           # the row-partitioned shard products (phases 29-30): the same two
+           # kernels, each launched once a distributed SpMV over the rank's block
+           "dist_dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
+           "dist_csr_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
+           "dist_ell_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
+           "dist_csr_subset_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
+           "dist_slab_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:165")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
@@ -837,7 +871,9 @@ def profile_solvers(dev, iters=64):
     """Device time per solver iteration by kernel, and the device's busy
     share of the wall time with and without the profiler: CG on the 512²
     and 2048² Poisson DIA, PCG(Jacobi) on the FEM StripELL and SlabStream
-    (one row-group plan), and BiCGStab on the circuit RouteStream.  Each
+    (one row-group plan), BiCGStab on the circuit RouteStream, and CG at
+    2048² through DistDIA at a world of one rank under NCCL and over its
+    plain block with no DTensor.  Each
     case's SpMV kernels (the names holding its key) get a line of their
     own."""
     from torch.profiler import ProfilerActivity, profile
@@ -848,6 +884,14 @@ def profile_solvers(dev, iters=64):
         b = tsm.spmv(csr, torch.randn(n * n, generator=gen(dev), device=dev))
         cases.append((f"CG {n}²", "dia_spmv",
                       lambda k, A=dia, b=b: solvers.cg(A, b, tol=0.0, maxiter=k)))
+    # the same 2048² CG through DistDIA at a world of one rank under NCCL
+    mesh = parallel.make_mesh()
+    dA = parallel.distribute_dia(dia, mesh)
+    bs = dA.padded_vector(b, mesh)
+    cases.append(("DistDIA CG 2048² (world of one, NCCL)", "dia_spmv",
+                  lambda k: solvers.cg(lambda v: dA.matvec(v, mesh), bs, tol=0.0, maxiter=k)))
+    cases.append(("CG 2048² over DistDIA's plain block (no DTensor)", "dia_spmv",
+                  lambda k: solvers.cg(block_matvec(dA), bs.to_local(), tol=0.0, maxiter=k)))
     rows, cols, vals, n, _ = fem_triplets()
     csr, st, _ = assemble_strip(rows, cols, vals, n, dev)
     Mj = solvers.JacobiPreconditioner.from_matrix(csr)
@@ -888,6 +932,7 @@ def profile_solvers(dev, iters=64):
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:14]:
             print(f"   {e.self_device_time_total / iters:9.2f} us/iter  "
                   f"x{e.count / iters:5.2f}/iter  {e.key[:110]}", flush=True)
+    torch.distributed.destroy_process_group()
 
 
 def fem_phases(dev, g, times, launches):
@@ -2304,6 +2349,243 @@ def algebra_phases(dev, g):
     say("25-28 total", f"{time.perf_counter() - t_start:.1f} s")
 
 
+def full(v):
+    """A sharded vector (DTensor) read whole, or a tensor as it is."""
+    return v.full_tensor() if hasattr(v, "full_tensor") else v
+
+
+def shard_need(plan):
+    """(bytes, "plan" or "CSR"): what an SpMV over a shard's row-group plan
+    needs (``spmv_need`` on the shard's own shape and entries)."""
+    n_rows, n_cols = plan.shape
+    of_csr = need_bytes(plan.nnz, plan.shape)
+    of_plan = plan.nbytes + (n_rows + n_cols) * 4
+    return (of_plan, "plan") if of_plan < of_csr else (of_csr, "CSR")
+
+
+def block_matvec(d):
+    """DistDIA's shard product on the rank's plain block at a world of one,
+    with no DTensor around it: the band kernel over the zero-padded block.
+    A CG through it shows what the DTensor vectors cost."""
+    h = d.halo
+    return lambda v: kd.dia_spmv(d.shard, torch.nn.functional.pad(v, (h, h)))
+
+
+def reset_all_launches():
+    for module in (kd, ks, kr, ksp, ksl, kw, pdist):
+        module.reset_launches()
+
+
+def dist_phases(dev, g, times, launches, csr, dia, b, x_cg):
+    """Phases 29-30: PartitionedBuilder, the mesh and the distribution
+    layer at a world of one rank under NCCL, on the 2048² Poisson operator
+    of phase 4 (``csr``, ``dia``, its right-hand side ``b`` and 200-iteration
+    CG iterate ``x_cg``) and the FEM SPD operator of phase 10.  Adds the
+    dist_* rows to ``times`` and ``launches``."""
+    # 29 -----------------------------------------------------------------------
+    n = int(round(csr.shape[0] ** 0.5))
+    m = n * n
+    rows, cols, vals = poisson_triplets(n)
+    t0 = time.perf_counter()
+    pb = tsm.PartitionedBuilder(4, m)
+    blk = np.minimum(rows // pb.rows_per_block, pb.n_blocks - 1)
+    for k in range(pb.n_blocks):
+        on = blk == k
+        pb.blocks[k].add_batch(rows[on] - k * pb.rows_per_block, cols[on], vals[on])
+    t_add = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcsr = pb.to_csr(device=dev)
+    torch.cuda.synchronize()
+    t_freeze = time.perf_counter() - t0
+    check(pb.shape == csr.shape and pb.nnz == csr.n_non_zero_entries(), "PartitionedBuilder shape")
+    for f in ("indptr", "indices", "data", "row_ids"):
+        check(torch.equal(getattr(pcsr, f), getattr(csr, f)),
+              f"PartitionedBuilder CSR {f} differs from SparseBuilder's")
+    del rows, cols, vals, blk, pb
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh()
+    t_mesh = time.perf_counter() - t0
+    check(torch.distributed.get_backend() == "nccl", "the mesh's process group is not NCCL")
+    check(mesh.device_type == "cuda" and mesh.size() == 1, f"mesh {mesh}")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(1)
+    t_dry = time.perf_counter() - t0
+    say("29 partition", f"PartitionedBuilder(4 blocks) {n}² Poisson: add {t_add:.3f} s, to_csr "
+        f"{t_freeze:.3f} s, CSR bitwise equal to SparseBuilder's; make_mesh() {t_mesh:.3f} s: "
+        f"{mesh.device_type} {dict(zip(mesh.mesh_dim_names, mesh.shape))} backend "
+        f"{torch.distributed.get_backend()}; process_info {parallel.process_info()}; "
+        f"{line} ({t_dry:.3f} s)")
+
+    # 30 -----------------------------------------------------------------------
+    reset_all_launches()
+    host = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host[label] = time.perf_counter() - t
+        return out
+
+    def matvec(d, x):
+        return full(d.unpad(d.matvec(d.padded_vector(x, mesh), mesh)))
+
+    # DistDIA on the 2048² Poisson operator
+    dA = timed("distribute_dia", lambda: parallel.distribute_dia(dia, mesh))
+    timed("DistDIA plan", dA.shard_plan)
+    x = torch.randn(m, generator=g, device=dev)
+    y_dist = matvec(dA, x)
+    e_dia = compare(None, y_dist, tsm.spmv(dia, x), 1e-5, "DistDIA spmv vs spmv(DIA)")
+    e_dia_ref = compare(None, y_dist, kd.dia_spmv_ref(dia, x), 1e-5,
+                        "DistDIA spmv vs the plain DIA SpMV")
+    check(torch.equal(matvec(dA, x), y_dist), "DistDIA spmv rerun differs")
+    bs = dA.padded_vector(b, mesh)
+
+    def dist_cg(d, rhs, k=200):
+        return solvers.cg(lambda v: d.matvec(v, mesh), rhs, tol=0.0, maxiter=k)
+
+    xd, info = dist_cg(dA, bs)
+    check(int(info.iterations) == 200, "DistDIA CG iterations")
+    xd = full(dA.unpad(xd))
+    e_cg = compare(None, xd, x_cg, 1e-4, "DistDIA CG x vs phase 4's CG")
+    r_true, b_norm = host_residual(csr, xd, b)
+    xd2, info2 = dist_cg(dA, bs)
+    check(torch.equal(full(dA.unpad(xd2)), xd)
+          and float(info2.residual_norm) == float(info.residual_norm), "DistDIA CG rerun differs")
+
+    # the FEM SPD operator of phase 10 through the four general formats
+    frows, fcols, fvals, nf, _ = fem_triplets()
+    fcsr = tsm.CSR.from_host_coo(frows, fcols, fvals, (nf, nf), dtype=torch.float32, device=dev)
+    del frows, fcols, fvals
+    fem = scipy_csr(fcsr)
+    xf = torch.randn(nf, generator=g, device=dev)
+    yf_csr = tsm.spmv(fcsr, xf)
+    yf_sp = torch.from_numpy(fem @ xf.double().cpu().numpy()).to(dev)
+    made = {"DistCSR": lambda: parallel.distribute_csr(fcsr, mesh),
+            "DistELL": lambda: parallel.distribute_csr(fcsr, mesh, format="ell"),
+            "DistCSRSubset": lambda: parallel.distribute_csr_subset(fcsr, mesh),
+            "DistSlab": lambda: parallel.distribute_slab(fcsr, mesh, rb=128)}
+    dists, errs = {}, {}
+    for label, make in made.items():
+        d = timed(f"distribute {label}", make)
+        timed(f"{label} plan", d.shard_plan)
+        y = matvec(d, xf)
+        errs[label] = (compare(None, y, yf_csr, 1e-5, f"{label} spmv vs spmv(CSR)"),
+                       compare(None, y, yf_sp, 1e-5, f"{label} spmv vs scipy"))
+        check(torch.equal(matvec(d, xf), y), f"{label} spmv rerun differs")
+        dists[label] = d
+    bf = torch.randn(nf, generator=g, device=dev)
+    x_ref, _ = solvers.cg(fcsr, bf, tol=0.0, maxiter=200)
+    cg_errs = {}
+    for label in ("DistSlab", "DistCSRSubset"):
+        d = dists[label]
+        bfs = d.padded_vector(bf, mesh)
+        xs, info_f = dist_cg(d, bfs)
+        xs = full(d.unpad(xs))
+        cg_errs[label] = compare(None, xs, x_ref, 1e-4, f"{label} CG x vs the CG over the CSR")
+        xs2, _ = dist_cg(d, bfs)
+        check(torch.equal(full(d.unpad(xs2)), xs), f"{label} CG rerun differs")
+    torch.cuda.synchronize()
+    run = dict(pdist.LAUNCHES)
+    for name, count in run.items():
+        check(count > 0, f"the distributed path launched {name} no time")
+    launches.update(run)
+    say("30 dist", f"DistDIA {n}²: spmv rel err vs spmv(DIA) {e_dia:.2e}, vs plain "
+        f"{e_dia_ref:.2e}; 200 CG iterations x rel err vs phase 4 {e_cg:.2e}, ‖r‖ recursive "
+        f"{float(info.residual_norm):.6e} true (f64) {r_true:.6e} of ‖b‖ {b_norm:.6e}; FEM "
+        f"{nf} rows: spmv rel err (vs spmv(CSR), vs scipy) "
+        + "; ".join(f"{k} {a:.2e}, {c:.2e}" for k, (a, c) in errs.items())
+        + "; 200 CG iterations x rel err vs the CG over the CSR "
+        + "; ".join(f"{k} {e:.2e}" for k, e in cg_errs.items())
+        + f"; DistSlab halo {dists['DistSlab'].halo_windows} windows, DistCSRSubset hops "
+        f"{dists['DistCSRSubset'].hop_m}; every SpMV and CG reran bitwise; launches {run}; "
+        f"host seconds " + "; ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+    # each shard product against its plain version, timed
+    def x_ext(d, xv):
+        """The vector the shard product of ``d`` reads at a world of one."""
+        xl = full(d.padded_vector(xv, mesh))
+        h = d.halo if isinstance(d, pdist.DistDIA) else (
+            d.halo_windows * 128 if isinstance(d, pdist.DistSlab) else 0)
+        return torch.nn.functional.pad(xl, (h, h)) if h else xl
+
+    csr_t = torch_csr(csr)
+    fem_t = torch_csr(fcsr)
+    xe = x_ext(dA, x)
+    cases = [("dist_dia_spmv", f"DistDIA {n}² Poisson", dA, xe,
+              lambda: kd.dia_spmv(dA.shard, xe, pdist.LAUNCHES, "dist_dia_spmv"),
+              lambda: kd.dia_spmv_ref(dA.shard, xe), lambda: torch.mv(csr_t, x),
+              "dia_spmv_kernel", lambda: pdist.LAUNCHES["dist_dia_spmv"])]
+    for name, label in (("dist_csr_spmv", "DistCSR"), ("dist_ell_spmv", "DistELL"),
+                        ("dist_csr_subset_spmv", "DistCSRSubset")):
+        d = dists[label]
+        xg = x_ext(d, xf)
+        cases.append((name, f"{label} FEM", d, xg,
+                      (lambda d=d, xg=xg, name=name: krg.launch_spmv(
+                          d.shard_plan(), xg, pdist.LAUNCHES, name)),
+                      (lambda d=d, xg=xg: krg.spmv_walk(d.shard_plan(), xg)),
+                      lambda: torch.mv(fem_t, xf), "rowgroup_spmv_kernel",
+                      (lambda name=name: pdist.LAUNCHES[name])))
+    dS = dists["DistSlab"]
+    xs_ext = x_ext(dS, xf)
+    cases.append(("dist_slab_spmv", "DistSlab FEM", dS, xs_ext,
+                  lambda: ksl.slab_spmv(dS.shard, xs_ext, pdist.LAUNCHES, "dist_slab_spmv"),
+                  lambda: ksl.slab_spmv_ref(dS.shard, xs_ext),
+                  lambda: torch.mv(fem_t, xf), "rowgroup_spmv_kernel",
+                  lambda: pdist.LAUNCHES["dist_slab_spmv"]))
+    for name, label, d, xv, kernel_fn, plain_fn, lib_fn, key, counter in cases:
+        compare(name, kernel_fn(), plain_fn(), TOL[torch.float32]["y"], f"{label} shard product")
+        k_ms, p_ms, k_runs, p_runs = paired_ms(kernel_fn, plain_fn, 50, 5)
+        xsh = d.padded_vector(x if isinstance(d, pdist.DistDIA) else xf, mesh)
+        call_ms = cuda_ms(lambda d=d, xsh=xsh: d.matvec(xsh, mesh), 20)
+        dev_ms = device_us(kernel_fn, 20, key, counter) / 1e3
+        lib = library_ms(lib_fn, 20)
+        if isinstance(d, pdist.DistDIA):
+            n_d, r = len(d.offsets), d.rows_per_block
+            n_bytes, by_what = (n_d * r + xv.numel() + r) * 4, "band"
+            flops = 2 * n_d * r
+            plan_desc = plan_picks(d.shard_plan())
+        else:
+            plan = d.shard_plan()
+            n_bytes, by_what = shard_need(plan)
+            flops = 2 * plan.nnz
+            plan_desc = plan_line(label, plan, host[f"{label.split()[0]} plan"])
+        b_ms, by = record(times, name, k_ms, p_ms, n_bytes, flops, lib)
+        times[name].update(device_ms=dev_ms, call_ms=call_ms, bound_counts=by_what,
+                           runs_ms=k_runs, plain_runs_ms=p_runs)
+        say("30 times", f"{label} shard product: kernel {k_ms:.4f} ms runs "
+            f"{[round(v, 4) for v in k_runs]}, device {dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of "
+            f"the bound), plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}, {by_what}); "
+            f"torch.mv {lib:.4f} ms; the whole distributed SpMV call {call_ms:.4f} ms; "
+            f"{plan_desc}")
+
+    # launches per step of each path, and the DistDIA CG's rate beside phase 4's
+    per = per_step(lambda: pdist.LAUNCHES, lambda j: dist_cg(dA, bs, j), 32)
+    note_steps(times, "dist_dia_spmv", per["dist_dia_spmv"], f"CG iteration, DistDIA {n}²")
+    bfs = dS.padded_vector(bf, mesh)
+    per_s = per_step(lambda: pdist.LAUNCHES, lambda j: dist_cg(dS, bfs, j), 32)
+    note_steps(times, "dist_slab_spmv", per_s["dist_slab_spmv"], "CG iteration, DistSlab FEM")
+    for name, label in (("dist_csr_spmv", "DistCSR"), ("dist_ell_spmv", "DistELL"),
+                        ("dist_csr_subset_spmv", "DistCSRSubset")):
+        d = dists[label]
+        xfs = d.padded_vector(xf, mesh)
+        per_p = per_step(lambda: pdist.LAUNCHES,
+                         lambda j, d=d, xfs=xfs: [d.matvec(xfs, mesh) for _ in range(j)], 1)
+        note_steps(times, name, per_p[name], f"{label}.matvec product, FEM")
+    plain_cg = (lambda: cg_iters_per_s(dia, b, 320))
+    block_cg = (lambda: cg_iters_per_s(block_matvec(dA), bs.to_local(), 320))
+    dist_rate = (lambda: cg_iters_per_s(lambda v: dA.matvec(v, mesh), bs, 320))
+    rates = [plain_cg(), block_cg(), dist_rate(), dist_rate(), block_cg(), plain_cg()]
+    say("30 times", f"launches per step: DistDIA CG {per}; DistSlab CG {per_s}; CG f32 {n}² "
+        f"iters/s: DistDIA world 1 {(rates[2] + rates[3]) / 2:.1f} runs {rates[2:4]}; the "
+        f"same CG over the rank's plain block, no DTensor {(rates[1] + rates[4]) / 2:.1f} runs "
+        f"{[rates[1], rates[4]]}; phase 4's CG over the DIA {(rates[0] + rates[5]) / 2:.1f} "
+        f"runs {[rates[0], rates[5]]}")
+    torch.distributed.destroy_process_group()
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2314,9 +2596,6 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' products in f32
     torch.backends.cudnn.allow_tf32 = False
-    if args.profile:
-        profile_solvers(dev)
-        return
 
     # 1 ------------------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -2326,6 +2605,9 @@ def main():
     say("1 device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
                     f"nvidia-smi:")
     print(smi.splitlines()[0], flush=True)
+    if args.profile:
+        profile_solvers(dev)
+        return
 
     # 2 ------------------------------------------------------------------------
     say("2 build", "; ".join(f"{k} {v:.3f} s" for k, v in build_all().items()))
@@ -2479,6 +2761,7 @@ def main():
     spmm_phases(dev, g, times, launches)
     general_phases(dev, g, times, launches, csr)
     algebra_phases(dev, g)
+    dist_phases(dev, g, times, launches, csr, dia, b, x_cg)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -23,12 +23,15 @@ plain functions.  The DIA, StripELL, RouteStream, BSR, slab, SlabStream and
 WELL kernels are hand-written CUDA for Hopper (``csrc/``), built at first
 use; on CPU tensors each takes its plain PyTorch version.  SpGEMM and the
 SOR sweep run as PyTorch ops on the card (the reference has no TPU kernel
-there).  Not ported yet: ``PartitionedBuilder`` and the distributed SpMV.
+there).  ``PartitionedBuilder`` assembles block rows; ``parallel`` (imported
+as ``sparsemat_tpu_torch.parallel``) partitions a frozen matrix by rows over
+a ``torch.distributed`` device mesh, one rank a block, each rank's product
+on the same CUDA kernels.
 This package imports neither jax nor ``sparsemat_tpu``.
 """
 
 from . import checkpoint, formats, io, ops, solvers, vectors
-from .builder import SparseBuilder
+from .builder import PartitionedBuilder, SparseBuilder
 from .formats import (BSR, COO, CSR, DIA, ELL, GELL, SELL, WELL, RouteStream, RowVec, SlabELL,
                       SlabPack, SlabStream, SparseFormat, StripELL, auto_format)
 from .ops import (DimensionError, add, extract_row, inner_prod, is_sorted, is_sorted_row,
@@ -41,6 +44,7 @@ from .vectors import DenseVec, SparseVec, norm, norm_squared
 __all__ = [
     "COO", "CSR", "DIA", "ELL", "SELL", "BSR", "GELL", "RouteStream", "StripELL",
     "SlabELL", "SlabPack", "SlabStream", "WELL", "RowVec", "SparseFormat", "SparseBuilder",
+    "PartitionedBuilder",
     "auto_format",
     "ConjugateGradient", "Jacobi", "BiCGStab", "GMRES",
     "JacobiPreconditioner", "BlockJacobiPreconditioner", "SolveInfo", "solvers",

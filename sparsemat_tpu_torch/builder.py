@@ -10,7 +10,9 @@ The store is the shared C++ open-addressing hash accumulator
 (``sparsemat_tpu/native/assembly.cc``, built by ``native/``), with a
 pure-Python dict store where that library is unavailable.  Freezing
 (``to_coo``/``to_csr``) runs on the host and uploads the frozen arrays to
-the requested device once.  ``PartitionedBuilder`` is not ported yet.
+the requested device once.  ``PartitionedBuilder`` assembles block rows in
+sub-builders and freezes their union (the distributed layer, ``parallel/``,
+partitions a frozen matrix itself).
 """
 
 from __future__ import annotations
@@ -377,3 +379,127 @@ class SparseBuilder:
     def __repr__(self):
         return (f"SparseBuilder(shape={self.shape}, nnz={self.nnz}, "
                 f"dtype={self.dtype}, backend={'native' if self.native else 'python'})")
+
+
+class PartitionedBuilder:
+    """Block-row partitioned assembly (counterpart of the JAX package's
+    ``PartitionedBuilder``).
+
+    ``n_blocks`` sub-builders each own ``max_n_rows // n_blocks`` contiguous
+    rows; a write goes to block ``row // rows_per_block``, clamped to the
+    last block, which also takes the rows past ``n_blocks ·
+    rows_per_block``.  A freeze is one lexsort over the blocks' insertion
+    exports: the same canonical COO or CSR as one ``SparseBuilder`` holding
+    the same entries."""
+
+    def __init__(self, n_blocks: int, max_n_rows: int, **kw):
+        if n_blocks < 1 or max_n_rows < n_blocks:
+            raise ValueError("need n_blocks >= 1 and max_n_rows >= n_blocks")
+        self.n_blocks = n_blocks
+        self.rows_per_block = max_n_rows // n_blocks
+        self.max_n_rows = max_n_rows
+        self.blocks = [SparseBuilder(**kw) for _ in range(n_blocks)]
+
+    @classmethod
+    def with_sub_matrices(cls, n_blocks: int, max_n_rows: int, **kw):
+        return cls(n_blocks, max_n_rows, **kw)
+
+    def _route(self, i: int) -> Tuple[int, int]:
+        b = min(i // self.rows_per_block, self.n_blocks - 1)
+        return b, i - b * self.rows_per_block
+
+    def add_to(self, i, j, v):
+        b, r = self._route(int(i))
+        self.blocks[b].add_to(r, j, v)
+
+    def set(self, i, j, v):
+        b, r = self._route(int(i))
+        self.blocks[b].set(r, j, v)
+
+    def get(self, i, j):
+        b, r = self._route(int(i))
+        return self.blocks[b].get(r, j)
+
+    def __setitem__(self, ij, v):
+        self.set(ij[0], ij[1], v)
+
+    def __getitem__(self, ij):
+        return self.get(ij[0], ij[1])
+
+    @property
+    def nnz(self) -> int:
+        return sum(b.nnz for b in self.blocks)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        n_rows = 0
+        n_cols = 0
+        for k, b in enumerate(self.blocks):
+            if b.nnz:
+                n_rows = max(n_rows, k * self.rows_per_block + b.n_rows)
+            n_cols = max(n_cols, b.n_cols)
+        return (n_rows, n_cols)
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    def density(self) -> float:
+        nr, nc = self.shape
+        return self.nnz / (nr * nc) if nr and nc else 0.0
+
+    def __iter__(self):
+        for k, blk in enumerate(self.blocks):
+            off = k * self.rows_per_block
+            for i, j, v in blk:
+                yield i + off, j, v
+
+    def iter_row(self, i: int):
+        b, r = self._route(int(i))
+        return self.blocks[b].iter_row(r)
+
+    def _triplets(self):
+        """Every block's insertion export, rows made global, in (row, col)
+        order."""
+        parts = [blk._store.export_insertion() for blk in self.blocks]
+        rows = np.concatenate([r + k * self.rows_per_block for k, (r, _, _) in enumerate(parts)])
+        cols = np.concatenate([c for _, c, _ in parts])
+        vals = np.concatenate([v for _, _, v in parts])
+        order = np.lexsort((cols, rows))
+        return rows[order], cols[order], vals[order]
+
+    def to_coo(self, *, device=None):
+        """Freeze the union of the blocks into one canonical COO on
+        ``device`` (None: the current CUDA card)."""
+        from .formats.coo import COO
+
+        device = resolve_device(device)
+        rows, cols, vals = self._triplets()
+        b0 = self.blocks[0]
+        idt = host_dtype(b0.index_dtype)
+        return COO(rows=torch.from_numpy(rows.astype(idt)).to(device),
+                   cols=torch.from_numpy(cols.astype(idt)).to(device),
+                   vals=torch.from_numpy(vals).to(b0.dtype).to(device),
+                   shape=self.shape, canonical=True)
+
+    def to_csr(self, *, device=None):
+        """Freeze the union of the blocks into CSR on ``device`` (None: the
+        current CUDA card), by ``SparseBuilder.to_csr``'s host path."""
+        from .formats.csr import CSR
+
+        b0 = self.blocks[0]
+        return CSR.from_host_coo(*self._triplets(), self.shape, dtype=b0.dtype,
+                                 index_dtype=b0.index_dtype, sum_duplicates=False,
+                                 device=resolve_device(device))
+
+    def mvp(self, x):
+        """y = A·x on x's device where x is a tensor, else on the current
+        CUDA card."""
+        from .ops import spmv
+
+        device = x.device if isinstance(x, torch.Tensor) else resolve_device(None)
+        return spmv(self.to_csr(device=device), torch.as_tensor(x, device=device))

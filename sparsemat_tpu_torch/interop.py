@@ -4,8 +4,10 @@
 ``BSR``/``StripELL``/``RouteStream``/``SlabELL``/``SlabPack``/``SlabStream``/
 ``WELL``/``GELL`` from the JAX package's frozen arrays handed over as numpy
 (``np.asarray(jax_csr.indptr)`` and so on), so both packages compute on the
-same matrix and the same frozen layout.  Nothing of the JAX package is
-imported.
+same matrix and the same frozen layout; and the rank's part of a
+``DistDIA``/``DistCSR``/``DistELL``/``DistCSRSubset``/``DistSlab`` from the
+JAX object's global arrays, so both compute on the same partition.  Nothing
+of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from .formats.sell import SELL
 from .formats.slab import SlabELL, SlabPack, SlabStream
 from .formats.strip import StripELL, StripPart
 from .formats.well import WELL
+from .parallel.dist import DistCSR, DistCSRSubset, DistDIA, DistELL, DistSlab
+from .parallel.mesh import ROWS_AXIS
 from .types import resolve_device
 
 _FIELDS = {"coo": ("rows", "cols", "vals"),
@@ -54,10 +58,19 @@ _SLAB_ARRAYS = ("vals", "lidx", "win_lo", "bucket_cnt")
 _SLAB_STATIC = ("buckets",)
 #: a SlabPack's fields
 _PACK_FIELDS = ("parts", "block_ids", "row_block", "overflow")
+#: the row-partitioned formats: each takes its global arrays (a leading
+#: block axis) and its static fields in ``fields``
+_DIST = {"dist_dia": (DistDIA, ("data",)),
+         "dist_csr": (DistCSR, ("indptr", "indices", "data", "local_rows")),
+         "dist_ell": (DistELL, ("cols", "vals")),
+         "dist_csr_subset": (DistCSRSubset, ("send_idx", "indices", "data", "local_rows",
+                                             "hop_m", "rpb")),
+         "dist_slab": (DistSlab, ("vals", "lidx", "win_lo", "buckets", "halo_windows",
+                                  "local_windows"))}
 
 
 def from_reference(fields: dict, *, format: str, shape, offsets=None,
-                   device=None):
+                   device=None, mesh=None, axis: str = ROWS_AXIS):
     """The port's format ``format`` ('coo', 'csr', 'dia', 'ell', 'sell',
     'bsr', 'strip', 'route', 'slab', 'slab_pack', 'slab_stream', 'well' or
     'gell') from the JAX package's frozen arrays ``fields`` (name → numpy
@@ -73,8 +86,26 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
     (block_ids, g4, lidx_pack).  A SlabELL takes its arrays (vals, lidx,
     win_lo, bucket_cnt, which may be None) and ``buckets``; a SlabPack
     ``{"parts": [slab, ...], "block_ids", "row_block", "overflow"}``, each
-    part a SlabELL's dict and the overflow a SlabPack's dict or None."""
+    part a SlabELL's dict and the overflow a SlabPack's dict or None.
+
+    The row-partitioned formats ('dist_dia', 'dist_csr', 'dist_ell',
+    'dist_csr_subset', 'dist_slab') take the JAX object's global arrays
+    (``np.asarray(d.indptr)``, a DistCSRSubset's ``send_idx`` as a tuple of
+    them) and its static fields by their names (``hop_m``, ``rpb``;
+    ``buckets``, ``halo_windows``, ``local_windows``), the row ``mesh``
+    (its size the block count) and its ``axis``; a DistDIA needs
+    ``offsets``.  They return this rank's part, on the mesh's device."""
     shape = tuple(int(s) for s in shape)
+    if format in _DIST:
+        cls, need = _DIST[format]
+        _check_fields(format, fields, need)
+        if mesh is None:
+            raise ValueError(f"{format}: a mesh is required")
+        if format == "dist_dia":
+            if offsets is None:
+                raise ValueError("dist_dia: offsets are required")
+            return cls.from_global(fields, shape=shape, offsets=offsets, mesh=mesh, axis=axis)
+        return cls.from_global(fields, shape=shape, mesh=mesh, axis=axis)
     device = resolve_device(device)
     if format == "gell":
         return _gell(fields, shape, device)
@@ -89,7 +120,8 @@ def from_reference(fields: dict, *, format: str, shape, offsets=None,
         return _slab_pack(fields, shape, device)
     if format not in _FIELDS:
         raise ValueError(f"unknown format {format!r}; expected one of "
-                         f"{sorted(_FIELDS) + ['gell', 'slab', 'slab_pack', 'strip']}")
+                         f"{sorted(_FIELDS) + ['gell', 'slab', 'slab_pack', 'strip']}"
+                         f" or {sorted(_DIST)}")
     need = _FIELDS[format]
     _check_fields(format, fields, need, _IGNORED.get(format, ()))
     static = {f: int(fields[f]) for f in _STATIC.get(format, ())}

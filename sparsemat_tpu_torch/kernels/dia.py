@@ -321,8 +321,10 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool, what: str):
-    """y (and the 0-d dot) by one launch of the SpMV kernel."""
+def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool, what: str,
+                 launches: dict = LAUNCHES):
+    """y (and the 0-d dot) by one launch of the SpMV kernel, counted in
+    ``launches[what]``."""
     data, x = _operands(dia, x, what)
     dev = x.device
     plan = dia_spmv_plan(dia, data.dtype, dev, aligned=_aligned(data, x))
@@ -336,6 +338,7 @@ def _launch_spmv(dia: DIA, x: torch.Tensor, with_dot: bool, what: str):
             plan.launch, data.data_ptr(), x.data_ptr(), y.data_ptr(), _ptr(partials),
             _ptr(counter), _ptr(dot), stream)
     _check(rc, what)
+    launches[what] += 1
     return y, dot
 
 
@@ -361,13 +364,13 @@ def dia_spmv_chain_ref(dia: DIA, x: torch.Tensor, k: int) -> torch.Tensor:
 
 # --- wrappers ----------------------------------------------------------------
 
-def dia_spmv(dia: DIA, x: torch.Tensor) -> torch.Tensor:
+def dia_spmv(dia: DIA, x: torch.Tensor, launches: dict = LAUNCHES,
+             name: str = "dia_spmv") -> torch.Tensor:
     """y = A @ x.  CUDA: one launch of ``dia_spmv_kernel`` over the
-    matrix's plan; CPU: the plain version."""
+    matrix's plan, counted in ``launches[name]``; CPU: the plain version."""
     if _on_cpu(dia, x):
         return dia_spmv_ref(dia, x)
-    y, _ = _launch_spmv(dia, x, with_dot=False, what="dia_spmv")
-    LAUNCHES["dia_spmv"] += 1
+    y, _ = _launch_spmv(dia, x, with_dot=False, what=name, launches=launches)
     return y
 
 
@@ -379,9 +382,7 @@ def dia_spmv_dot(dia: DIA, x: torch.Tensor):
     _require_square(dia, "dia_spmv_dot")
     if _on_cpu(dia, x):
         return dia_spmv_dot_ref(dia, x)
-    y, dot = _launch_spmv(dia, x, with_dot=True, what="dia_spmv_dot")
-    LAUNCHES["dia_spmv_dot"] += 1
-    return y, dot
+    return _launch_spmv(dia, x, with_dot=True, what="dia_spmv_dot")
 
 
 # --- the chain's plan ----------------------------------------------------------

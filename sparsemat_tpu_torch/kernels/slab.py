@@ -170,11 +170,12 @@ def _check_operand(mat, X: torch.Tensor, kind: str, want: tuple) -> None:
                          f"matrix")
 
 
-def _launch_spmv(mat, x: torch.Tensor, name: str = "slab_spmv") -> torch.Tensor:
+def _launch_spmv(mat, x: torch.Tensor, name: str = "slab_spmv",
+                 launches: dict = LAUNCHES) -> torch.Tensor:
     """y = A @ x through ``rowgroup_spmv_kernel``, one launch per product,
-    counted in ``LAUNCHES[name]``."""
+    counted in ``launches[name]``."""
     _check_operand(mat, x, name, (mat.shape[1],))
-    return _rowgroup.launch_spmv(_rowgroup.plan_of(mat, _check_layout), x, LAUNCHES, name)
+    return _rowgroup.launch_spmv(_rowgroup.plan_of(mat, _check_layout), x, launches, name)
 
 
 def _launch_spmm(mat, B: torch.Tensor) -> torch.Tensor:
@@ -187,10 +188,11 @@ def _on_cpu(mat, X) -> bool:
     return mat.data.device.type == "cpu" and X.device.type == "cpu"
 
 
-def slab_spmv(sl: SlabELL, x: torch.Tensor) -> torch.Tensor:
+def slab_spmv(sl: SlabELL, x: torch.Tensor, launches: dict = LAUNCHES,
+              name: str = "slab_spmv") -> torch.Tensor:
     """y = A @ x over a SlabELL.  CUDA: one launch of ``rowgroup_spmv_kernel``
-    over the plan; CPU: the plain version."""
-    return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch_spmv(sl, x)
+    over the plan, counted in ``launches[name]``; CPU: the plain version."""
+    return slab_spmv_ref(sl, x) if _on_cpu(sl, x) else _launch_spmv(sl, x, name, launches)
 
 
 def slab_pack_spmv(pack: SlabPack, x: torch.Tensor) -> torch.Tensor:

@@ -61,7 +61,12 @@ def _check_operands(A, b):
 
 
 def _dot(a, b):
-    return torch.sum(a * b)
+    s = torch.sum(a * b)
+    # over vectors sharded by rows (DTensors, ``parallel/``) the sum is each
+    # rank's partial sum: all-reduce it here, once, so every scalar the loop
+    # derives from it is whole, and a plain tensor, on every rank (the JAX
+    # package's psum)
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
 
 
 def _as_matvec_dot(A) -> Callable:

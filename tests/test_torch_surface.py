@@ -23,10 +23,8 @@ FORMATS = ["dia", "csr", "coo", "ell", "sell", "bsr", "slab", "slab_pack", "slab
            "strip", "route", "well", "gell"]
 
 #: top-level names of the JAX package that the port does not have yet, each
-#: still listed in ROADMAP.md's Queue 1: PartitionedBuilder (item 6)
-NOT_PORTED = {
-    "PartitionedBuilder": "Queue 1 item 6, distribution",
-}
+#: still listed in ROADMAP.md's Queue 1: none left
+NOT_PORTED = {}
 
 
 def jax_ref():
@@ -95,6 +93,14 @@ def test_top_level_names_cover_the_reference():
     assert set(tsm.__all__) >= set(jsm.__all__) - set(NOT_PORTED)
     for name in ("JacobiPreconditioner", "BlockJacobiPreconditioner"):
         assert getattr(tsm, name) is getattr(tsm.solvers, name)
+
+
+def test_parallel_names_cover_the_reference():
+    from sparsemat_tpu_torch import parallel as tpar
+
+    jpar = pytest.importorskip("sparsemat_tpu.parallel")
+    assert set(tpar.__all__) >= set(jpar.__all__)
+    assert all(hasattr(tpar, name) for name in jpar.__all__)
 
 
 # -- spmv_traffic_bytes ----------------------------------------------------------------
