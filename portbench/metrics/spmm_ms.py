@@ -1,0 +1,9 @@
+"""spmm_ms: all the window's time, to the device's synchronisation at its
+end, over the SpMM calls issued in it."""
+
+
+def read(run):
+    w = run.get("window")
+    if run["kind"] != "product" or "slice" in run or not w or not w["ops"]:
+        return None
+    return 1e3 * w["seconds"] / w["ops"]
