@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import tempfile
 
+from .utils import profiling
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "sparsemat_tpu_torch")
@@ -67,10 +69,12 @@ def find_nvcc() -> str:
 
 
 def load_cuda(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu`` (built on first call)."""
+    """The library built from ``csrc/<name>.cu`` (built on first call; the
+    first load is the set-up span ``freeze.build``)."""
     lib = _loaded.get(name)
     if lib is None:
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        lib = ctypes.CDLL(compile_shared(name, [find_nvcc()] + NVCC_FLAGS, [src]))
+        with profiling.span("freeze.build", setup=True):
+            src = os.path.join(CSRC_DIR, f"{name}.cu")
+            lib = ctypes.CDLL(compile_shared(name, [find_nvcc()] + NVCC_FLAGS, [src]))
         _loaded[name] = lib
     return lib

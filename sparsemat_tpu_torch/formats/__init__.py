@@ -11,6 +11,7 @@ ragged assembly format that freezes to CSR or COO."""
 
 import numpy as np
 
+from ..utils import profiling
 from .base import SparseFormat
 from .bsr import BSR
 from .coo import COO
@@ -53,7 +54,13 @@ def auto_format(mat, *, max_diags: int = 48, max_ell_waste: float = 2.0,
     (256-row block, 128-column window) bucket costs at least 8 × 256 slots,
     and a globally scattered operand whose lower bound already breaks the
     waste cap is never frozen (on the scircuit-class surrogate the JAX
-    package once built a 13 GB layout that way)."""
+    package once built a 13 GB layout that way).  Recorded as the set-up
+    span ``freeze.auto_format``."""
+    with profiling.span("freeze.auto_format", setup=True):
+        return _auto_format(mat, max_diags, max_ell_waste, max_slab_waste)
+
+
+def _auto_format(mat, max_diags, max_ell_waste, max_slab_waste):
     csr = mat.to_csr()
     nnz = csr.n_non_zero_entries()
     if nnz == 0:

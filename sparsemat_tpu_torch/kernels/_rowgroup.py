@@ -47,6 +47,7 @@ from .._build import load_cuda
 from ..formats.bsr import BSR
 from ..formats.route import RouteStream
 from ..types import accum_dtype
+from ..utils import profiling
 
 #: the largest row group (the kernels' mask is 8 bits)
 MAX_GROUP = 8
@@ -362,18 +363,21 @@ def plan_of(mat, check=None) -> Plan:
     RouteStream (at G = 1: its CSR), shared by its SpMV and SpMM: built on
     the matrix's device at first use (a BSR's entries from its blocks, the
     others' from ``to_coo``), after ``check(mat)`` where one is given, and
-    cached on it (a frozen matrix's layout and values never change)."""
+    cached on it (a frozen matrix's layout and values never change).  A
+    build is the set-up span ``freeze.plan``."""
     plan = mat.__dict__.get("_rowgroup_plan")
     if plan is None:
-        if check is not None:
-            check(mat)
-        if isinstance(mat, BSR):
-            entries = bsr_entries(mat)
-        else:
-            coo = mat.to_coo()
-            entries = (coo.rows, coo.cols, coo.vals)
-        plan = build(*entries, mat.shape, group=1 if isinstance(mat, RouteStream) else None)
-        object.__setattr__(mat, "_rowgroup_plan", plan)
+        with profiling.span("freeze.plan", setup=True):
+            if check is not None:
+                check(mat)
+            if isinstance(mat, BSR):
+                entries = bsr_entries(mat)
+            else:
+                coo = mat.to_coo()
+                entries = (coo.rows, coo.cols, coo.vals)
+            plan = build(*entries, mat.shape,
+                         group=1 if isinstance(mat, RouteStream) else None)
+            object.__setattr__(mat, "_rowgroup_plan", plan)
     return plan
 
 

@@ -38,10 +38,12 @@ import torch
 from ..formats.dia import DIA
 from ..formats.dia import dia_spmv as dia_spmv_ref
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from .._build import load_cuda
 
 #: kernel launches per wrapper (plain versions do not count)
-LAUNCHES = {"dia_spmv": 0, "dia_spmv_dot": 0, "dia_spmv_chain": 0}
+LAUNCHES = profiling.register("kernels.dia", {"dia_spmv": 0, "dia_spmv_dot": 0,
+                                              "dia_spmv_chain": 0})
 #: chain launches by kernel: the cluster kernel or the cooperative grid
 CHAIN_KERNELS = {"cluster": 0, "grid": 0}
 
@@ -269,7 +271,7 @@ def _occupancy(device: torch.device, dtype: torch.dtype):
 def dia_spmv_plan(dia: DIA, dtype: torch.dtype, device, aligned: bool = True) -> SpmvPlan:
     """``spmv_plan`` for this DIA run in ``dtype`` on the CUDA ``device``,
     from the card's SM count and occupancy, with its ``launch`` struct;
-    cached on the matrix."""
+    cached on the matrix (a build is the set-up span ``freeze.plan``)."""
     key = (dtype, device, aligned)
     cache = dia.__dict__.get("_spmv_plans")
     if cache is None:
@@ -277,15 +279,17 @@ def dia_spmv_plan(dia: DIA, dtype: torch.dtype, device, aligned: bool = True) ->
         object.__setattr__(dia, "_spmv_plans", cache)
     plan = cache.get(key)
     if plan is None:
-        device = torch.device(device)
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = spmv_plan(dia.shape[0], dia.shape[1], dia.offsets, dtype.itemsize, sms,
-                         _occupancy(device, dtype), _kernels().smt_dia_spmv_threads(),
-                         aligned)
-        launch = SpmvLaunch(dia.offsets_dev.data_ptr(), ctypes.addressof(plan.offsets_host),
-                            len(dia.offsets), plan.n_d, plan.vec, plan.grid, dia.shape[0],
-                            dia.shape[1], plan.tiles, *plan.interior)
-        plan = cache[key] = replace(plan, launch=launch)
+        with profiling.span("freeze.plan", setup=True):
+            device = torch.device(device)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            plan = spmv_plan(dia.shape[0], dia.shape[1], dia.offsets, dtype.itemsize, sms,
+                             _occupancy(device, dtype), _kernels().smt_dia_spmv_threads(),
+                             aligned)
+            launch = SpmvLaunch(dia.offsets_dev.data_ptr(),
+                                ctypes.addressof(plan.offsets_host), len(dia.offsets),
+                                plan.n_d, plan.vec, plan.grid, dia.shape[0], dia.shape[1],
+                                plan.tiles, *plan.interior)
+            plan = cache[key] = replace(plan, launch=launch)
     return plan
 
 

@@ -37,11 +37,12 @@ import torch.nn.functional as F
 
 from ..formats.route import ARRAYS, LANE, REG_ROWS, SUP_ROWS, RouteStream
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from .._build import load_cuda
 from . import _rowgroup
 
 #: kernel launches (the plain versions do not count)
-LAUNCHES = {"route_spmv": 0}
+LAUNCHES = profiling.register("kernels.route", {"route_spmv": 0})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None

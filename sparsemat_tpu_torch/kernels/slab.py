@@ -39,12 +39,14 @@ import torch
 
 from ..formats.slab import WINDOW, SlabELL, SlabPack, SlabStream
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from . import _rowgroup
 from ._common import gather
 
 #: kernel launches (plain versions do not count): one per product, any
 #: number of overflow levels
-LAUNCHES = {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
+LAUNCHES = profiling.register("kernels.slab", {"slab_spmv": 0, "slab_spmm": 0,
+                                               "slab_stream_spmv": 0})
 
 #: cap on the plain SpMM's materialised (slots, columns) gather of B
 _REF_GATHER_BUDGET = 1 << 29

@@ -31,10 +31,11 @@ import torch.nn.functional as F
 
 from ..formats.bsr import BSR
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from . import _rowgroup
 
 #: kernel launches (plain versions do not count)
-LAUNCHES = {"bsr_spmm": 0}
+LAUNCHES = profiling.register("kernels.spmm", {"bsr_spmm": 0})
 
 
 def reset_launches() -> None:

@@ -28,10 +28,11 @@ import torch
 
 from ..formats.strip import WINDOW, StripELL
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from . import _rowgroup
 
 #: kernel launches (plain versions do not count)
-LAUNCHES = {"strip_spmv": 0}
+LAUNCHES = profiling.register("kernels.strip", {"strip_spmv": 0})
 
 
 def reset_launches() -> None:

@@ -25,11 +25,12 @@ import torch
 
 from ..formats.well import ROW_BLOCK, WELL, WINDOW
 from ..types import FLOAT_DTYPES, accum_dtype
+from ..utils import profiling
 from . import _rowgroup
 from ._common import gather
 
 #: kernel launches (the plain version does not count)
-LAUNCHES = {"well_spmv": 0}
+LAUNCHES = profiling.register("kernels.well", {"well_spmv": 0})
 
 
 def reset_launches() -> None:

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from .._build import CSRC_DIR, compile_shared
+from ..utils import profiling
 
 _SOURCES = ["assembly.cc", "mmio.cc"]
 _GXX = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -62,13 +63,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The native library, building it on first call; None if unavailable."""
+    """The native library, building it on first call (the set-up span
+    ``freeze.build``); None if unavailable."""
     global _lib, _lib_error
     if _lib is not None or _lib_error is not None:
         return _lib
     try:
         srcs = [os.path.join(CSRC_DIR, s) for s in _SOURCES]
-        _lib = _bind(ctypes.CDLL(compile_shared("smt_native", _GXX, srcs)))
+        with profiling.span("freeze.build", setup=True):
+            _lib = _bind(ctypes.CDLL(compile_shared("smt_native", _GXX, srcs)))
     except (OSError, RuntimeError, AttributeError) as e:
         _lib_error = str(e)
         print(f"sparsemat_tpu_torch: native C++ runtime unavailable, falling "

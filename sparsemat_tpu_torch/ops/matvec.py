@@ -41,6 +41,7 @@ from ..kernels import spmm as spmm_kernels
 from ..kernels import strip as strip_kernels
 from ..kernels import well as well_kernels
 from ..types import accum_dtype
+from ..utils import profiling
 
 _SPMV_METHODS = (None, "pallas", "dia", "dia_xla", "strip", "route", "slab_stream",
                  "slab_pack", "slab", "well", "gell", "ell")
@@ -60,6 +61,13 @@ def _check_dims(mat, x, what="spmv"):
 
 def _unknown(what, method):
     raise ValueError(f"{what}: unknown method {method!r}")
+
+
+def _to(mat, fmt: str):
+    """``mat.to_<fmt>()``, a conversion that the dispatch makes at call
+    time: counted by target in ``ops.conversions`` while tracing is on."""
+    profiling.count(profiling.CONVERSIONS, fmt)
+    return getattr(mat, f"to_{fmt}")()
 
 
 # --- CSR / COO stream path ---------------------------------------------------
@@ -143,44 +151,52 @@ def spmv(mat, x, *, method: str | None = None) -> torch.Tensor:
     format frozen to WELL, then the WELL kernel), 'dia' (the DIA kernel),
     'dia_xla' (the plain DIA SpMV on any device), 'strip', 'route',
     'slab_stream', 'slab_pack', 'slab', 'well', 'gell' or 'ell' (freeze to
-    that format first, as the JAX package's methods do)."""
+    that format first, as the JAX package's methods do).  A call is the
+    span ``ops.spmv`` while tracing is on."""
+    if not profiling.on():      # spares the no-op span its two method calls a product
+        return _spmv(mat, x, method)
+    with profiling.span("ops.spmv"):
+        return _spmv(mat, x, method)
+
+
+def _spmv(mat, x, method):
     x = torch.as_tensor(x)
     _check_dims(mat, x)
     if method not in _SPMV_METHODS:
         _unknown("spmv", method)
     if method == "pallas":
-        return well_kernels.well_spmv(mat if isinstance(mat, WELL) else mat.to_well(), x)
+        return well_kernels.well_spmv(mat if isinstance(mat, WELL) else _to(mat, "well"), x)
     if isinstance(mat, DIA) or method in ("dia", "dia_xla"):
-        dia = mat if isinstance(mat, DIA) else mat.to_dia()
+        dia = mat if isinstance(mat, DIA) else _to(mat, "dia")
         if method == "dia_xla":
             return dia_spmv_plain(dia, x)
         return dia_kernels.dia_spmv(dia, x)
     if isinstance(mat, StripELL) or method == "strip":
-        st = mat if isinstance(mat, StripELL) else mat.to_strip()
+        st = mat if isinstance(mat, StripELL) else _to(mat, "strip")
         return strip_kernels.strip_spmv(st, x)
     if isinstance(mat, RouteStream) or method == "route":
-        rs = mat if isinstance(mat, RouteStream) else mat.to_route()
+        rs = mat if isinstance(mat, RouteStream) else _to(mat, "route")
         return route_kernels.route_spmv(rs, x)
     if isinstance(mat, SlabStream) or method == "slab_stream":
-        st = mat if isinstance(mat, SlabStream) else mat.to_slab_stream()
+        st = mat if isinstance(mat, SlabStream) else _to(mat, "slab_stream")
         return slab_kernels.slab_stream_spmv(st, x)
     if isinstance(mat, SlabPack) or method == "slab_pack":
-        pk = mat if isinstance(mat, SlabPack) else mat.to_slab_pack()
+        pk = mat if isinstance(mat, SlabPack) else _to(mat, "slab_pack")
         return slab_kernels.slab_pack_spmv(pk, x)
     if isinstance(mat, SlabELL) or method == "slab":
-        sl = mat if isinstance(mat, SlabELL) else mat.to_slab()
+        sl = mat if isinstance(mat, SlabELL) else _to(mat, "slab")
         return slab_kernels.slab_spmv(sl, x)
     if isinstance(mat, WELL) or method == "well":
-        well = mat if isinstance(mat, WELL) else mat.to_well()
+        well = mat if isinstance(mat, WELL) else _to(mat, "well")
         return well_kernels.well_spmv(well, x)
     if isinstance(mat, GELL) or method == "gell":
-        return _gell_spmv(mat if isinstance(mat, GELL) else mat.to_gell(), x)
+        return _gell_spmv(mat if isinstance(mat, GELL) else _to(mat, "gell"), x)
     if isinstance(mat, ELL) or method == "ell":
-        return _ell_spmv(mat.to_ell(), x)
+        return _ell_spmv(mat if isinstance(mat, ELL) else _to(mat, "ell"), x)
     if isinstance(mat, CSR):
         return _stream_spmv(mat.indptr, mat.indices, mat.data, x)
     # COO, and any other format (BSR, SELL) through COO, as in the JAX package
-    coo = mat.to_coo().sort()
+    coo = (mat if isinstance(mat, COO) else _to(mat, "coo")).sort()
     return _stream_spmv(coo.indptr(), coo.cols, coo.vals, x)
 
 
@@ -218,7 +234,15 @@ def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
     """Y = A @ B for dense B of shape (n_cols, m).  ``method``: None (by
     format), 'pallas' or 'bsr' (BSR freeze, the BSR kernel), 'dia',
     'slab_pack', 'slab', 'gell' or 'ell'.  WELL, SlabStream and SELL go
-    through CSR, as in the JAX package."""
+    through CSR, as in the JAX package.  A call is the span ``ops.spmm``
+    while tracing is on."""
+    if not profiling.on():      # spares the no-op span its two method calls a product
+        return _spmm(mat, B, method)
+    with profiling.span("ops.spmm"):
+        return _spmm(mat, B, method)
+
+
+def _spmm(mat, B, method):
     B = torch.as_tensor(B)
     _check_dims(mat, B, "spmm")
     if B.dim() != 2:
@@ -226,19 +250,21 @@ def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
     if method not in _SPMM_METHODS:
         _unknown("spmm", method)
     if isinstance(mat, BSR) or method in ("pallas", "bsr"):
+        if not isinstance(mat, BSR):
+            profiling.count(profiling.CONVERSIONS, "bsr")
         return spmm_kernels.spmm_pallas(mat, B)
     if isinstance(mat, DIA) or method == "dia":
-        return dia_spmm(mat if isinstance(mat, DIA) else mat.to_dia(), B)
+        return dia_spmm(mat if isinstance(mat, DIA) else _to(mat, "dia"), B)
     if isinstance(mat, SlabPack) or method == "slab_pack":
-        pk = mat if isinstance(mat, SlabPack) else mat.to_slab_pack()
+        pk = mat if isinstance(mat, SlabPack) else _to(mat, "slab_pack")
         return slab_kernels.slab_pack_spmm(pk, B)
     if isinstance(mat, SlabELL) or method == "slab":
-        sl = mat if isinstance(mat, SlabELL) else mat.to_slab()
+        sl = mat if isinstance(mat, SlabELL) else _to(mat, "slab")
         return slab_kernels.slab_spmm(sl, B)
     if isinstance(mat, GELL) or method == "gell":
-        return _gell_spmm(mat if isinstance(mat, GELL) else mat.to_gell(), B)
+        return _gell_spmm(mat if isinstance(mat, GELL) else _to(mat, "gell"), B)
     if isinstance(mat, ELL) or method == "ell":
-        return _ell_spmm(mat.to_ell(), B)
+        return _ell_spmm(mat if isinstance(mat, ELL) else _to(mat, "ell"), B)
     if isinstance(mat, CSR):
         # the ELL gather where its padding is small and (n_rows, K, m) fits
         # the budget, else the column-tiled stream
@@ -246,13 +272,13 @@ def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
         ell_slots = mat.max_row_nnz() * mat.n_rows
         if (nnz and ell_slots <= 4 * nnz
                 and ell_slots * B.shape[1] * 4 <= _SPMM_GATHER_BUDGET):
-            return _ell_spmm(mat.to_ell(), B)
+            return _ell_spmm(_to(mat, "ell"), B)
         return _stream_spmm_tiled(mat.indptr, mat.indices, mat.data, B)
     if isinstance(mat, COO):
         coo = mat.sort()
         return _stream_spmm_tiled(coo.indptr(), coo.cols, coo.vals, B)
     # any other format through CSR, so the ELL-or-stream choice applies
-    return spmm(mat.to_csr(), B, method=method)
+    return _spmm(_to(mat, "csr"), B, method)
 
 
 def _column_order(mat):

@@ -61,11 +61,13 @@ from ..formats.slab import SLAB_ROW_BLOCK, WINDOW, SlabELL
 from ..kernels import _rowgroup
 from ..kernels import dia as kd
 from ..kernels import slab as ksl
+from ..utils import profiling
 from .mesh import ROWS_AXIS, mesh_device
 
 #: shard products that launched their kernel (plain versions do not count)
-LAUNCHES = {"dist_dia_spmv": 0, "dist_csr_spmv": 0, "dist_ell_spmv": 0,
-            "dist_csr_subset_spmv": 0, "dist_slab_spmv": 0}
+LAUNCHES = profiling.register("parallel.dist", {
+    "dist_dia_spmv": 0, "dist_csr_spmv": 0, "dist_ell_spmv": 0, "dist_csr_subset_spmv": 0,
+    "dist_slab_spmv": 0})
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .types import is_float_dtype
+from .utils import profiling
 
 #: loop steps between two host reads of the loop condition
 SYNC_EVERY = 32
@@ -104,16 +105,23 @@ def _while(cond, body, state: dict, maxiter: int, on_step=None,
     condition includes ``k < maxiter``: steps run in blocks of ``every``,
     each committed only where ``cond`` held, and the host reads ``cond``
     once per block.  ``on_step(active, new)`` sees every step (for
-    histories)."""
+    histories).  While tracing is on (``utils.profiling``), each block's
+    enqueue is the span ``solver.block`` and the ``solver`` counters take
+    the steps executed and, from a state's ``k``, the steps committed."""
     for _ in range(-(-max(int(maxiter), 0) // every)):
-        for _ in range(every):
-            active = cond(state)
-            new = body(state)
-            if on_step is not None:
-                on_step(active, new)
-            state = {k: torch.where(active, new[k], v) for k, v in state.items()}
+        with profiling.span("solver.block"):
+            for _ in range(every):
+                active = cond(state)
+                new = body(state)
+                if on_step is not None:
+                    on_step(active, new)
+                state = {k: torch.where(active, new[k], v) for k, v in state.items()}
+        profiling.count(profiling.SOLVER, "steps_executed", every)
         if not bool(cond(state)):
             break
+    if "k" in state and profiling.on():
+        # the loop's last host read has already waited for k
+        profiling.count(profiling.SOLVER, "steps_committed", int(state["k"]))
     return state
 
 

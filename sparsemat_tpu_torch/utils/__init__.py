@@ -1,5 +1,8 @@
-"""Timing and roofline accounting (counterpart of ``sparsemat_tpu/utils``)."""
+"""Timing, and the program's spans and counters (counterpart of
+``sparsemat_tpu/utils``)."""
 
-from .profiling import KernelReport, roofline_spmv, sync, time_chained_op, trace_to
+from .profiling import (reset_trace, span, sync, time_chained_op, trace_record, trace_to,
+                        tracing)
 
-__all__ = ["KernelReport", "roofline_spmv", "time_chained_op", "sync", "trace_to"]
+__all__ = ["time_chained_op", "sync", "trace_to", "span", "tracing", "trace_record",
+           "reset_trace"]

@@ -1,16 +1,43 @@
-"""Kernel timing and roofline accounting (counterpart of
+"""Kernel timing, and the program's spans and counters (counterpart of
 ``sparsemat_tpu/utils/profiling.py``).
 
 Times come from the card: CUDA events around many chained launches, after a
 warm-up, over a synchronised stream.  A tensor on the CPU is refused, never
-timed on the host under a device metric's name.  The memory rate of a
-roofline is the caller's argument: the port assumes no card's rate.
+timed on the host under a device metric's name.
+
+Spans and counters say what the program was doing.  ``span(name)`` marks a
+block of host code: while tracing is on it enters a record function
+named ``"sparsemat." + name`` (only while a ``torch.profiler`` records, so
+the span lands in its trace as a host op, on the clock of the device's
+events) and adds its count, total seconds and self seconds (total less the
+time of the spans opened inside it) to an in-memory table.  Tracing is on
+while a ``torch.profiler`` records or inside ``with tracing():``.  Off, a
+span costs one flag read and returns one shared no-op object: no
+allocation, no ``record_function``, no clock read.  Set-up spans
+(``setup=True``: a format's freeze, a launch plan, a native build) run once
+a matrix and record into the table always.
+
+Counters are dicts of counts, one registry for the program: the kernel
+modules' ``LAUNCHES`` (registered under their module's name, counting
+every launch as before) and the counts below, which ``count`` adds to only
+while tracing is on.  ``trace_record()`` reads spans and counters;
+``reset_trace()`` clears both.  ``trace_to`` exports a profiler's Chrome
+trace.
+
+Spans: ``solver.block`` (one block of ``solvers._while``'s steps, its
+host read of the condition left out), ``ops.spmv`` and ``ops.spmm`` (the
+public products), ``freeze.auto_format``, ``freeze.plan`` (a launch plan
+built: ``kernels/dia.py`` ``dia_spmv_plan``, ``kernels/_rowgroup.py``
+``plan_of``) and ``freeze.build`` (a native library loaded, compiled first
+where its build is absent).  Counters: ``solver`` (``steps_executed``,
+``steps_committed``) and ``ops.conversions`` (the format conversions the
+products' dispatch makes at call time, by target format).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -78,72 +105,6 @@ def time_chained_op(step_fn: Callable, x0: torch.Tensor, captures: Sequence = ()
     return best / inner
 
 
-@dataclasses.dataclass
-class KernelReport:
-    """Roofline report for one kernel invocation profile."""
-
-    name: str
-    seconds: float
-    nnz: int
-    bytes_model: int
-    flops: int
-    hbm_bw: float  # bytes/s the memory can stream (the caller's figure)
-
-    @property
-    def gnnz_per_s(self) -> float:
-        return self.nnz / self.seconds / 1e9
-
-    @property
-    def gb_per_s(self) -> float:
-        return self.bytes_model / self.seconds / 1e9
-
-    @property
-    def roofline_seconds(self) -> float:
-        return self.bytes_model / self.hbm_bw
-
-    @property
-    def roofline_fraction(self) -> float:
-        return self.roofline_seconds / self.seconds
-
-    def __str__(self):
-        return (f"{self.name}: {self.seconds*1e6:.1f} us  "
-                f"{self.gnnz_per_s:.2f} Gnnz/s  {self.gb_per_s:.0f} GB/s  "
-                f"{100*self.roofline_fraction:.1f}% of roofline")
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
-def spmv_bytes_model(fmt) -> int:
-    """The JAX package's minimal traffic model for one SpMV on a frozen
-    format: the layout's value and index arrays (DIA, ELL, WELL) or 8 bytes
-    an entry (every other format), and 4 bytes a row and a column."""
-    n_rows, n_cols = fmt.shape
-    name = type(fmt).__name__
-    vec = 4 * (n_rows + n_cols)
-    if name == "DIA":
-        return _nbytes(fmt.data) + vec
-    if name == "ELL":
-        return _nbytes(fmt.vals) + _nbytes(fmt.cols) + vec
-    if name == "WELL":
-        return _nbytes(fmt.vals) + _nbytes(fmt.lidx) + fmt.vals.shape[0] * 128 * 4 + vec
-    return int(fmt.n_non_zero_entries()) * 8 + vec
-
-
-def roofline_spmv(fmt, x, hbm_bw: float, name: str | None = None,
-                  inner: int = 200) -> KernelReport:
-    """An SpMV path timed on the card against its traffic model at
-    ``hbm_bw`` bytes/s."""
-    from ..ops import spmv
-
-    dt = time_chained_op(lambda v, m: spmv(m, v) * 5e-4, torch.as_tensor(x),
-                         captures=(fmt,), inner=inner)
-    nnz = int(fmt.n_non_zero_entries())
-    return KernelReport(name=name or type(fmt).__name__, seconds=dt, nnz=nnz,
-                        bytes_model=spmv_bytes_model(fmt), flops=2 * nnz, hbm_bw=hbm_bw)
-
-
 @contextlib.contextmanager
 def trace_to(path: str):
     """A ``torch.profiler`` trace of the block (the card's activity where
@@ -154,3 +115,121 @@ def trace_to(path: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(path)
+
+
+# -- spans and counters ------------------------------------------------------------------
+
+_AP = torch.autograd.profiler
+if hasattr(_AP, "_is_profiler_enabled"):
+    def _profiler_on() -> bool:
+        return _AP._is_profiler_enabled
+else:
+    _profiler_on = torch._C._autograd._profiler_enabled
+#: the profiler's host range: PyTorch's C++ record function where it has one
+#: (a host op of the trace, about an eighth of ``record_function``'s cost
+#: under the profiler), else ``record_function``
+_record_function = getattr(torch._C._profiler, "_RecordFunctionFast", _AP.record_function)
+
+#: open ``tracing()`` blocks
+_switch = 0
+#: name -> [count, total seconds, self seconds]
+_SPANS: dict[str, list] = {}
+#: the spans open now, innermost last
+_OPEN: list = []
+#: every counter of the program by name: a dict of counts each
+COUNTERS: dict[str, dict] = {}
+
+
+def on() -> bool:
+    """Whether tracing is on: a ``torch.profiler`` records, or a
+    ``tracing()`` block is open."""
+    return _switch > 0 or _profiler_on()
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans and counters on for the block, with no profiler."""
+    global _switch
+    _switch += 1
+    try:
+        yield
+    finally:
+        _switch -= 1
+
+
+class _Span:
+    __slots__ = ("name", "rf", "t0", "inner")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiler_on():
+            self.rf = _record_function("sparsemat." + self.name)
+            self.rf.__enter__()
+        self.inner = 0.0
+        _OPEN.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        _OPEN.pop()
+        if _OPEN:
+            _OPEN[-1].inner += dt
+        row = _SPANS.get(self.name)
+        if row is None:
+            row = _SPANS[self.name] = [0, 0.0, 0.0]
+        row[0] += 1
+        row[1] += dt
+        row[2] += dt - self.inner
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, setup: bool = False):
+    """A context manager that marks a block as span ``name``: recorded
+    while tracing is on, or always where ``setup``; otherwise the shared
+    no-op."""
+    if setup or _switch > 0 or _profiler_on():
+        return _Span(name)
+    return _OFF
+
+
+def register(name: str, counts: dict) -> dict:
+    """Put ``counts`` (the same dict) into the registry under ``name``;
+    returns it."""
+    COUNTERS[name] = counts
+    return counts
+
+
+SOLVER = register("solver", {"steps_executed": 0, "steps_committed": 0})
+CONVERSIONS = register("ops.conversions", {})
+
+
+def count(counts: dict, key: str, n: int = 1) -> None:
+    """``counts[key] += n`` while tracing is on."""
+    if on():
+        counts[key] = counts.get(key, 0) + n
+
+
+def trace_record() -> dict:
+    """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters":
+    {name: {key: count}}}``, copies of the table and of every counter."""
+    return {"spans": {n: {"count": c, "total_s": t, "self_s": s}
+                      for n, (c, t, s) in _SPANS.items()},
+            "counters": {n: dict(c) for n, c in COUNTERS.items()}}
+
+
+def reset_trace() -> None:
+    """Empty the span table and set every counter to zero (the kernel
+    modules' launch counts included)."""
+    _SPANS.clear()
+    for counts in COUNTERS.values():
+        for key in counts:
+            counts[key] = 0

@@ -1,8 +1,8 @@
 """The port's host surface against the JAX package's on the same inputs:
 ``RowVec`` (the cases of ``tests/test_rowvec.py``, with its freezes' arrays
 equal to the JAX package's), the CSR row and column access and ``prune``,
-``COO.prune`` / ``with_padding_to``, the dtype policy, and the profiling
-helpers' arithmetic.  Arrays are equal; values looked up and summed are
+``COO.prune`` / ``with_padding_to``, the dtype policy, and the timing
+helpers.  Arrays are equal; values looked up and summed are
 equal or, for f32 SpMV sums of three terms, within rel 1e-6.
 
 The builder's ``TypeError`` for a complex value dtype and an unsigned index
@@ -23,7 +23,6 @@ from sparsemat_tpu_torch.utils import profiling as tprof
 jnp = LazyModule("jax.numpy")
 jsm = LazyModule("sparsemat_tpu")
 jtypes = LazyModule("sparsemat_tpu.types")
-jprof = LazyModule("sparsemat_tpu.utils.profiling")
 
 X3 = [2.0, 4.8, 1.2]
 
@@ -255,26 +254,6 @@ def test_type_policy():
 
 # -- profiling ---------------------------------------------------------------------------
 
-def test_kernel_report_arithmetic_equals_reference():
-    args = dict(name="spmv", seconds=2.5e-4, nnz=10_609_572, bytes_model=130_000_000,
-                flops=21_219_144, hbm_bw=3.35e12)
-    t, j = tprof.KernelReport(**args), jprof.KernelReport(**args)
-    for f in ("gnnz_per_s", "gb_per_s", "roofline_seconds", "roofline_fraction"):
-        assert getattr(t, f) == getattr(j, f), f
-    assert str(t) == str(j)
-
-
-@pytest.mark.parametrize("fmt", ["dia", "ell", "well", "csr", "coo", "sell"])
-def test_spmv_bytes_model_equals_reference(fmt):
-    n = 40
-    m = sp.diags([4 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)], [0, 1, -1],
-                 format="csr", dtype=np.float32)
-    j, t = both_csr(m)
-    if fmt != "csr":
-        j, t = getattr(j, f"to_{fmt}")(), getattr(t, f"to_{fmt}")()
-    assert tprof.spmv_bytes_model(t) == jprof.spmv_bytes_model(j)
-
-
 def test_timing_refuses_the_host():
     x = torch.ones(4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -301,7 +280,3 @@ def cuda():
 @pytest.mark.cuda
 def test_cuda_timing_helpers(cuda):
     assert 0 < tprof.dispatch_rtt(cuda) < 1e-2
-    A = tsm.CSR.from_scipy(sp.random(2000, 2000, 0.01, format="csr", dtype=np.float32,
-                                     random_state=0), device=cuda)
-    rep = tprof.roofline_spmv(A, torch.ones(2000, device=cuda), hbm_bw=3.35e12, inner=20)
-    assert rep.seconds > 0 and 0 < rep.roofline_fraction
