@@ -79,7 +79,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  10 fem path    assemble the FEM operator, freeze to StripELL, its row-group
                 plan (build seconds, MB, group size, lanes, segments), spmv
                 (the kernel vs the CSR stream path, and vs its plain version
-                and its plan's walk at full size), PCG(Jacobi),
+                and its plan's walk at full size), spmm at m = 128 (one
+                strip_spmm launch of the row-group SpMM over the same plan,
+                against the CSR SpMM), PCG(Jacobi),
                 PCG(block-Jacobi 64), BiCGStab, GMRES(30), Chebyshev,
                 Jacobi, BiCGStab and GMRES on a
                 nonsymmetric variant, f64 refinement over f32 PCG; the strip
@@ -102,7 +104,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 card (its spmv bitwise equal), spmv vs the CSR stream path,
                 BiCGStab, GMRES(30), Jacobi on the nonsymmetric operator and
                 PCG(Jacobi) on a symmetric variant, true residuals in f64 on
-                the host; the route_spmv launch counter must be > 0; the
+                the host; spmm at m = 16 (the row-group SpMM over the G = 1
+                plan) vs the CSR SpMM; the route_spmv and route_spmm launch
+                counters must be > 0; the
                 kernel vs its plain version and the walk at full size, f32
                 and f64
  15 determinism route spmv and the BiCGStab run rerun bitwise
@@ -1006,6 +1010,14 @@ def fem_phases(dev, g, times, launches):
     e_spmv = compare(None, y_st, tsm.spmv(csr, x), 1e-5, "fem spmv strip kernel vs CSR stream")
     e_walk = compare(None, y_st, krg.spmv_walk(plan, x), 1e-5,
                      "fem strip kernel vs its plan's walk")
+    B128 = torch.randn(n, 128, generator=g, device=dev)
+    Y_st = tsm.spmm(st, B128)               # the row-group SpMM over the same plan
+    torch.cuda.synchronize()
+    check(ks.LAUNCHES["strip_spmm"] == 1, f"spmm(StripELL) launched strip_spmm "
+                                          f"{ks.LAUNCHES['strip_spmm']} times, not once")
+    e_spmm = compare(None, Y_st, tsm.spmm(csr, B128), 1e-5,
+                     "fem spmm strip kernel vs the CSR SpMM, m = 128")
+    del B128, Y_st
     b = torch.randn(n, generator=g, device=dev)
     Mj = solvers.JacobiPreconditioner.from_matrix(csr)
     report = {}
@@ -1065,6 +1077,7 @@ def fem_phases(dev, g, times, launches):
         f"to_strip {t_strip:.3f} s; {len(st.parts)} parts, c_total {min(parts)}–{max(parts)}, "
         f"nse {st.nse}, fill {st.fill_ratio():.3f}; spmv vs CSR rel err {e_spmv:.2e}, vs the "
         f"plan's walk {e_walk:.2e}; kernel vs plain f32 {e_full:.2e} f64 {e_full64:.2e}; "
+        f"spmm m = 128 (one strip_spmm launch) vs the CSR SpMM {e_spmm:.2e}; "
         f"Gershgorin λ ∈ [1, {lam_max:.4f}]; solves to rtol {SOLVE_RTOL} "
         "(iterations, true relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
@@ -1286,6 +1299,10 @@ def route_phases(dev, g, times, launches):
     solved("PCG(Jacobi) symmetric",
            *solvers.cg(rs_sym, b, tol=0.0, rtol=SOLVE_RTOL, maxiter=2000,
                        M=solvers.JacobiPreconditioner.from_matrix(csr_sym)), csr_sym, b)
+    B16 = torch.randn(m.shape[1], 16, generator=g, device=dev)
+    e_spmm = compare(None, tsm.spmm(rs, B16), tsm.spmm(csr, B16), 1e-5,
+                     "circuit spmm route_spmm kernel vs the CSR SpMM, m = 16")
+    del B16
     torch.cuda.synchronize()
     for name in kr.LAUNCHES:
         launches[name] = kr.LAUNCHES[name]
@@ -1299,7 +1316,8 @@ def route_phases(dev, g, times, launches):
         f"longest row {int(np.diff(m.indptr).max())}; .mtx {mtx_mb:.1f} MB, checkpoint "
         f"{npz_mb:.1f} MB; n_sup {rs.n_sup}, n_splits {rs.n_splits}, n_regions "
         f"{rs.n_regions}, nse {rs.nse}, fill {rs.fill_ratio():.3f}, spmv_traffic_bytes "
-        f"{rs.spmv_traffic_bytes()}; spmv vs CSR rel err {e_csr:.2e}; kernels vs plain "
+        f"{rs.spmv_traffic_bytes()}; spmv vs CSR rel err {e_csr:.2e}; spmm m = 16 (route_spmm) "
+        f"vs the CSR SpMM {e_spmm:.2e}; kernels vs plain "
         f"f32 {full[0]:.2e} f64 {full[1]:.2e} (and bitwise equal to the walk); solves to rtol {SOLVE_RTOL} (iterations, true "
         "relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())

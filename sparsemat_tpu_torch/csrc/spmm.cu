@@ -1,7 +1,7 @@
 // Row-group SpMM kernel for Hopper (sm_90a): Y = A @ B over the compact
-// launch plan of a BSR, SlabELL or SlabPack (kernels/_rowgroup.py), bound
-// to Python with ctypes through the plain C functions at the end of this
-// file.
+// launch plan of a BSR, SlabELL, SlabPack, StripELL, WELL, SlabStream or
+// RouteStream (kernels/_rowgroup.py), bound to Python with ctypes through
+// the plain C functions at the end of this file.
 //
 // Replaces sparsemat_tpu/kernels/spmm.py: bsr_spmm_pallas (:72, one MXU
 // product per stored (br x bc) block per 128-column tile of B),

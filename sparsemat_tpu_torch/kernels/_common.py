@@ -1,9 +1,12 @@
 """Helpers shared by the kernel wrappers: the fill-mode gather of the plain
-versions."""
+versions, the check of a kernel's operand, and the plain SpMM of the plan
+formats that have none of their own."""
 
 from __future__ import annotations
 
 import torch
+
+from ..types import FLOAT_DTYPES
 
 
 def gather(X: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
@@ -15,3 +18,25 @@ def gather(X: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
     g = X[torch.where(inside, cols, 0)]
     return torch.where(inside.reshape(inside.shape + (1,) * (X.dim() - 1)), g, 0)
 
+
+def check_operand(X: torch.Tensor, dev: torch.device, shape, kind: str, want: tuple) -> None:
+    """Raise unless ``X`` can be a kernel's operand for a ``shape`` matrix on
+    ``dev``: on that device, float, of shape ``want``."""
+    if X.device != dev:
+        raise ValueError(f"{kind}: matrix on {dev} and operand on {X.device}; the kernels "
+                         f"need both on one CUDA device")
+    if X.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{kind}: the CUDA kernels take a float operand, got {X.dtype}")
+    if tuple(X.shape) != want:
+        raise ValueError(f"{kind}: operand of shape {tuple(X.shape)} for a {tuple(shape)} "
+                         f"matrix")
+
+
+def spmm_through_csr(mat, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B by the dispatch's CSR SpMM (the ELL gather or the
+    column-tiled stream) of ``mat.to_csr()``, a conversion counted in
+    ``ops.conversions``: the plain SpMM of StripELL, WELL, SlabStream and
+    RouteStream, which the JAX package also computes through CSR."""
+    from ..ops import matvec            # the dispatch imports the kernel modules
+
+    return matvec._spmm(matvec._to(mat, "csr"), B, None)

@@ -1,6 +1,7 @@
-"""The row-group plan shared by the SpMV and SpMM of BSR, WELL, SlabELL
-and SlabPack, and by the SpMV of StripELL, SlabStream and RouteStream: a
-compact launch plan built once per matrix (``plan_of``), the bindings of
+"""The row-group plan shared by the SpMV and SpMM of BSR, WELL, SlabELL,
+SlabPack, StripELL, SlabStream and RouteStream (a BSR's SpMV aside, which
+goes through COO): a compact launch plan built once per matrix
+(``plan_of``), the bindings of
 the two CUDA kernels that walk it (``csrc/spmm.cu`` and ``csrc/spmv.cu``,
 see the notes there for what they replace and what bounds them), and plain
 walks of the plan in each kernel's order.
@@ -30,7 +31,8 @@ A RouteStream's plan is built at G = 1, where it is the matrix's CSR
 (``grp_ptr`` the row pointers, ``cols`` and ``vals`` the entries in row
 order), and its SpMV (``csrc/route.cu``, bound in ``kernels/route.py``)
 takes the nnz-balanced split of ``MergeSplit`` instead, whose tiles do not
-depend on how the row lengths spread.
+depend on how the row lengths spread; its SpMM walks the same plan with the
+row-group SpMM, at groups of one row.
 
 The plan lives beside the format (the frozen layouts stay bit-equal to
 the JAX freezes); its code is plain torch on any device, so the CPU tests
@@ -360,7 +362,8 @@ def bsr_entries(bsr: BSR):
 def plan_of(mat, check=None) -> Plan:
     """The plan of a BSR, WELL, SlabELL, SlabPack (every part and every
     overflow level in one), StripELL (every class part), SlabStream or
-    RouteStream (at G = 1: its CSR), shared by its SpMV and SpMM: built on
+    RouteStream (at G = 1: its CSR), shared by its SpMV and its SpMM (on a
+    card, every product of these formats but a BSR's SpMV): built on
     the matrix's device at first use (a BSR's entries from its blocks, the
     others' from ``to_coo``), after ``check(mat)`` where one is given, and
     cached on it (a frozen matrix's layout and values never change).  A

@@ -1,5 +1,6 @@
-"""RouteStream SpMV: the CUDA kernel's wrapper, its plain versions and
-launch counter (counterpart of ``sparsemat_tpu/kernels/route.py``).
+"""RouteStream SpMV and SpMM: the CUDA kernels' wrappers, the SpMV's plain
+versions and the launch counter (counterpart of
+``sparsemat_tpu/kernels/route.py``).
 
 The TPU's SpMV is two kernels over the freeze's routing tables (gather into
 a staging buffer, then reduce).  The port's is one launch of the merge-path
@@ -9,7 +10,10 @@ what bounds it) over the matrix's compact plan at G = 1
 dropped, built on the matrix's device at first use and cached on it), cut
 into nnz-balanced tiles by ``_rowgroup.MergeSplit`` (built once per plan).
 The routing tables stay in the format, bit-equal to the JAX freeze, and the
-kernel reads none of them.
+kernel reads none of them.  The SpMM launches ``rowgroup_spmm_kernel``
+(``csrc/spmm.cu``) over the same G = 1 plan, one launch per product; its
+plain version is the JAX package's path through CSR
+(``_common.spmm_through_csr``).
 
 The plain versions replay the JAX package's table semantics
 (``route_spmv_xla``) in two halves, ``route_gather_ref`` and
@@ -18,13 +22,13 @@ regions where the JAX package scans, so the kernel and its plain version
 are independent.  ``route_spmv_walk`` is the kernel's arithmetic in its
 order, in plain torch, for the tests.
 
-Dtypes: the values and x are computed in the accumulation dtype of the two
-(bf16/f16 in f32); the kernel runs in f32 or f64.  One difference from the
-plain versions: the kernel reads no padding slot, so where x holds inf or
-NaN it gives what a CSR SpMV gives (scipy, ``torch.mv``), not a slot's
-0·inf = NaN; for a finite x they agree.  The wrapper takes the plain
-version only when its tensors lie on the CPU; on a CUDA tensor it launches
-the kernel or raises.
+Dtypes: the values and x or B are computed in the accumulation dtype of the
+two (bf16/f16 in f32); the kernels run in f32 or f64.  One difference from
+the plain versions: the kernels read no padding slot, so where x or B holds
+inf or NaN they give what a CSR product gives (scipy, ``torch.mv``,
+``torch.sparse.mm``), not a slot's 0·inf = NaN; for a finite operand they
+agree.  A wrapper takes its plain version only when its tensors lie on the
+CPU; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,16 +44,18 @@ from ..types import FLOAT_DTYPES, accum_dtype
 from ..utils import profiling
 from .._build import load_cuda
 from . import _rowgroup
+from ._common import check_operand, spmm_through_csr
 
 #: kernel launches (the plain versions do not count)
-LAUNCHES = profiling.register("kernels.route", {"route_spmv": 0})
+LAUNCHES = profiling.register("kernels.route", {"route_spmv": 0, "route_spmm": 0})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
 
 
 def reset_launches() -> None:
-    LAUNCHES["route_spmv"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _kernels() -> ctypes.CDLL:
@@ -174,17 +180,21 @@ def window_rows(rs: RouteStream) -> np.ndarray:
     return np.stack([lo, hi]).astype(np.int32)
 
 
-# --- the kernel ------------------------------------------------------------------
+# --- the kernels -----------------------------------------------------------------
 
 def _check_layout(rs: RouteStream) -> None:
     """The arrays the plan is built from on one CUDA device, and float
     values: checked once per matrix, when its plan is built."""
     dev = rs.a_vals.device
     if dev.type != "cuda" or any(getattr(rs, k).device != dev for k in ARRAYS):
-        raise ValueError(f"route_spmv: the kernel needs every array on one CUDA device, "
+        raise ValueError(f"route kernels: the kernels need every array on one CUDA device, "
                          f"got {dev}")
     if rs.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"route_spmv: the CUDA kernel takes float values, got {rs.dtype}")
+        raise TypeError(f"route kernels: the CUDA kernels take float values, got {rs.dtype}")
+
+
+def _on_cpu(rs: RouteStream, X: torch.Tensor) -> bool:
+    return rs.a_vals.device.type == "cpu" and X.device.type == "cpu"
 
 
 def launch(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit, x: torch.Tensor) -> torch.Tensor:
@@ -218,18 +228,24 @@ def launch(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit, x: torch.Tensor) -
 def route_spmv(rs: RouteStream, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  CUDA: one launch of ``route_spmv_kernel`` over the
     matrix's G = 1 plan and its merge split; CPU: the plain version."""
-    if rs.a_vals.device.type == "cpu" and x.device.type == "cpu":
+    if _on_cpu(rs, x):
         return route_spmv_ref(rs, x)
-    if x.device != rs.a_vals.device:
-        raise ValueError(f"route_spmv: matrix on {rs.a_vals.device} and vector on {x.device}; "
-                         f"the kernel needs both on one CUDA device")
-    if x.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"route_spmv: the CUDA kernel takes a float vector, got {x.dtype}")
-    if x.dim() != 1 or x.shape[0] != rs.shape[1]:
-        raise ValueError(f"route_spmv: vector of shape {tuple(x.shape)} for a "
-                         f"{rs.shape} matrix")
+    check_operand(x, rs.a_vals.device, rs.shape, "route_spmv", (rs.shape[1],))
     plan = _rowgroup.plan_of(rs, _check_layout)
     return launch(plan, plan.merge, x)
+
+
+def route_spmm(rs: RouteStream, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B for B (n_cols, m).  CUDA: one launch of
+    ``rowgroup_spmm_kernel`` over the G = 1 plan the SpMV walks; CPU: the
+    plain path through CSR, a conversion a call.  The kernel skips the terms
+    with no stored entry, which the padded layout's plain SpMV computes as
+    0·inf: for a B holding inf or NaN it gives what a CSR SpMM gives, as the
+    plain path does."""
+    if _on_cpu(rs, B):
+        return spmm_through_csr(rs, B)
+    check_operand(B, rs.a_vals.device, rs.shape, "route_spmm", (rs.shape[1], B.shape[-1]))
+    return _rowgroup.launch(_rowgroup.plan_of(rs, _check_layout), B, LAUNCHES, "route_spmm")
 
 
 # --- the kernel's order, in plain torch (for the tests) -----------------------------

@@ -1,9 +1,11 @@
-"""SlabELL / SlabPack SpMV and SpMM, and the SlabStream SpMV: the CUDA
-kernels' wrappers, their plain versions and launch counters.  Counterpart of
+"""SlabELL, SlabPack and SlabStream SpMV and SpMM: the CUDA kernels'
+wrappers, their plain versions and launch counters.  Counterpart of
 the slab halves of two JAX modules: ``sparsemat_tpu/kernels/spmv.py``
 (``slab_spmv_pallas``, ``slab_pack_spmv_pallas``, ``slab_stream_spmv_pallas``
 and their ``*_xla`` oracles) and ``sparsemat_tpu/kernels/spmm.py``
-(``slab_spmm_pallas``, ``slab_pack_spmm_pallas``, ``slab_spmm_xla``).
+(``slab_spmm_pallas``, ``slab_pack_spmm_pallas``, ``slab_spmm_xla``); the
+JAX package computes a SlabStream's SpMM through CSR, and so does its plain
+version here (``_common.spmm_through_csr``).
 
 The SpMV and SpMM do not read the padded layout: each launches a row-group
 kernel (``csrc/spmv.cu`` and ``csrc/spmm.cu``, see the notes there for
@@ -41,12 +43,12 @@ from ..formats.slab import WINDOW, SlabELL, SlabPack, SlabStream
 from ..types import FLOAT_DTYPES, accum_dtype
 from ..utils import profiling
 from . import _rowgroup
-from ._common import gather
+from ._common import check_operand, gather, spmm_through_csr
 
 #: kernel launches (plain versions do not count): one per product, any
 #: number of overflow levels
 LAUNCHES = profiling.register("kernels.slab", {"slab_spmv": 0, "slab_spmm": 0,
-                                               "slab_stream_spmv": 0})
+                                               "slab_stream_spmv": 0, "slab_stream_spmm": 0})
 
 #: cap on the plain SpMM's materialised (slots, columns) gather of B
 _REF_GATHER_BUDGET = 1 << 29
@@ -161,29 +163,19 @@ def _check_layout(mat) -> None:
         raise TypeError(f"slab kernels: the CUDA kernels take float values, got {mat.dtype}")
 
 
-def _check_operand(mat, X: torch.Tensor, kind: str, want: tuple) -> None:
-    if X.device != mat.data.device:
-        raise ValueError(f"{kind}: matrix on {mat.data.device} and operand on "
-                         f"{X.device}; the kernels need both on one CUDA device")
-    if X.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"{kind}: the CUDA kernels take a float operand, got {X.dtype}")
-    if tuple(X.shape) != want or X.dim() != len(want):
-        raise ValueError(f"{kind}: operand of shape {tuple(X.shape)} for a {mat.shape} "
-                         f"matrix")
-
-
 def _launch_spmv(mat, x: torch.Tensor, name: str = "slab_spmv",
                  launches: dict = LAUNCHES) -> torch.Tensor:
     """y = A @ x through ``rowgroup_spmv_kernel``, one launch per product,
     counted in ``launches[name]``."""
-    _check_operand(mat, x, name, (mat.shape[1],))
+    check_operand(x, mat.data.device, mat.shape, name, (mat.shape[1],))
     return _rowgroup.launch_spmv(_rowgroup.plan_of(mat, _check_layout), x, launches, name)
 
 
-def _launch_spmm(mat, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B through ``rowgroup_spmm_kernel``, one launch per product."""
-    _check_operand(mat, B, "slab_spmm", (mat.shape[1], B.shape[-1]))
-    return _rowgroup.launch(_rowgroup.plan_of(mat, _check_layout), B, LAUNCHES, "slab_spmm")
+def _launch_spmm(mat, B: torch.Tensor, name: str = "slab_spmm") -> torch.Tensor:
+    """Y = A @ B through ``rowgroup_spmm_kernel``, one launch per product,
+    counted in ``LAUNCHES[name]``."""
+    check_operand(B, mat.data.device, mat.shape, name, (mat.shape[1], B.shape[-1]))
+    return _rowgroup.launch(_rowgroup.plan_of(mat, _check_layout), B, LAUNCHES, name)
 
 
 def _on_cpu(mat, X) -> bool:
@@ -223,3 +215,14 @@ def slab_stream_spmv(st: SlabStream, x: torch.Tensor) -> torch.Tensor:
     version."""
     return slab_stream_spmv_ref(st, x) if _on_cpu(st, x) else _launch_spmv(
         st, x, "slab_stream_spmv")
+
+
+def slab_stream_spmm(st: SlabStream, B: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B over a SlabStream, B (n_cols, m).  CUDA: one launch of
+    ``rowgroup_spmm_kernel`` over the plan the SpMV walks; CPU: the plain path
+    through CSR, a conversion a call.  The kernel skips the terms with no
+    stored entry, which the padded layout's plain SpMV computes as 0·inf: for
+    a B holding inf or NaN it gives what a CSR SpMM gives, as the plain path
+    does."""
+    return spmm_through_csr(st, B) if _on_cpu(st, B) else _launch_spmm(
+        st, B, "slab_stream_spmm")

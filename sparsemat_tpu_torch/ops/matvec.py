@@ -7,14 +7,16 @@ plan (``kernels/route.py``); StripELL (``kernels/strip.py``), SlabStream, SlabPa
 and SlabELL (``kernels/slab.py``) and WELL (and any matrix under
 ``method='pallas'``, ``kernels/well.py``) to the row-group SpMV over the
 matrix's compact plan (``kernels/_rowgroup.py``), and, for SpMM, BSR
-(``kernels/spmm.py``), SlabPack and SlabELL to the row-group SpMM over the
-same plan; each wrapper launches on CUDA tensors and takes its plain
-version on CPU tensors.  GELL takes one
+(``kernels/spmm.py``), SlabPack, SlabELL, StripELL, WELL, SlabStream and
+RouteStream to the row-group SpMM over the same plan; each wrapper launches
+on CUDA tensors and takes its plain version on CPU tensors (for the SpMM of
+the last four, the JAX package's path through CSR).  GELL takes one
 ELL gather sweep per level, joined by gathers through its inverse row maps;
-ELL takes dense gather sweeps; CSR and COO (and SELL, through COO) take the
-stream path: gather by column, multiply, and reduce each row's segment in
-order.  The segmented reduction has no atomics (a scatter-add with
-``index_add_`` would use them on CUDA), so reruns are bitwise equal.
+ELL takes dense gather sweeps; CSR and COO (and SELL, through COO for SpMV
+and CSR for SpMM) take the stream path: gather by column, multiply, and
+reduce each row's segment in order.  The segmented reduction has no atomics
+(a scatter-add with ``index_add_`` would use them on CUDA), so reruns are
+bitwise equal.
 ``rmatvec`` reduces by column the same way, over a column order of the
 entries built once per matrix.
 """
@@ -233,9 +235,11 @@ def spmv_chain(mat, x, k: int) -> torch.Tensor:
 def spmm(mat, B, *, method: str | None = None) -> torch.Tensor:
     """Y = A @ B for dense B of shape (n_cols, m).  ``method``: None (by
     format), 'pallas' or 'bsr' (BSR freeze, the BSR kernel), 'dia',
-    'slab_pack', 'slab', 'gell' or 'ell'.  WELL, SlabStream and SELL go
-    through CSR, as in the JAX package.  A call is the span ``ops.spmm``
-    while tracing is on."""
+    'slab_pack', 'slab', 'gell' or 'ell'.  StripELL, WELL, SlabStream and
+    RouteStream take the row-group SpMM over their plan on a card and go
+    through CSR on the CPU, as in the JAX package; SELL, which has no plan,
+    goes through CSR everywhere.  A call is the span ``ops.spmm`` while
+    tracing is on."""
     if not profiling.on():      # spares the no-op span its two method calls a product
         return _spmm(mat, B, method)
     with profiling.span("ops.spmm"):
@@ -277,7 +281,15 @@ def _spmm(mat, B, method):
     if isinstance(mat, COO):
         coo = mat.sort()
         return _stream_spmm_tiled(coo.indptr(), coo.cols, coo.vals, B)
-    # any other format through CSR, so the ELL-or-stream choice applies
+    if isinstance(mat, StripELL):
+        return strip_kernels.strip_spmm(mat, B)
+    if isinstance(mat, WELL):
+        return well_kernels.well_spmm(mat, B)
+    if isinstance(mat, SlabStream):
+        return slab_kernels.slab_stream_spmm(mat, B)
+    if isinstance(mat, RouteStream):
+        return route_kernels.route_spmm(mat, B)
+    # any other format (SELL) through CSR, so the ELL-or-stream choice applies
     return _spmm(_to(mat, "csr"), B, method)
 
 

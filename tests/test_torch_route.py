@@ -369,7 +369,7 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     y = kr.route_spmv(rs, x)
     assert torch.equal(y, kr.route_spmv_ref(rs, x))
     assert torch.equal(tsm.spmv(rs, x), y)
-    assert kr.LAUNCHES == {"route_spmv": 0}
+    assert kr.LAUNCHES == {"route_spmv": 0, "route_spmm": 0}
     assert "_rowgroup_plan" not in rs.__dict__          # the plain version builds no plan
 
 
@@ -460,7 +460,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, name):
     kr.reset_launches()
     y = kr.route_spmv(rs, x)
     torch.cuda.synchronize()
-    assert kr.LAUNCHES == {"route_spmv": 1}
+    assert kr.LAUNCHES == {"route_spmv": 1, "route_spmm": 0}
     y_ref = kr.route_spmv_ref(rs, x)
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
@@ -485,4 +485,4 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     kr.reset_launches()
     with pytest.raises(ValueError):
         kr.route_spmv(rs, torch.zeros(2, 150, device=cuda))    # not a vector
-    assert kr.LAUNCHES == {"route_spmv": 0}
+    assert kr.LAUNCHES == {"route_spmv": 0, "route_spmm": 0}

@@ -322,7 +322,8 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ksl.slab_pack_spmv(pk, x), ksl.slab_pack_spmv_ref(pk, x))
     assert torch.equal(ksl.slab_spmm(sl, B), ksl.slab_spmm_ref(sl, B))
     assert torch.equal(ksl.slab_pack_spmm(pk, B), ksl.slab_pack_spmm_ref(pk, B))
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
+                            "slab_stream_spmm": 0}
 
 
 def test_plain_spmm_groups_columns_within_its_budget(monkeypatch):
@@ -419,7 +420,8 @@ def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     y_ref = spmv_ref(mat, x)
     torch.cuda.synchronize()
     assert ksl.LAUNCHES == {"slab_spmv": 1, "slab_spmm": 0,     # one launch a product,
-                            "slab_stream_spmv": 0}               # any level count
+                            "slab_stream_spmv": 0,
+                            "slab_stream_spmm": 0}               # any level count
     assert y.dtype == y_ref.dtype and y.shape == (mat.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert torch.equal(spmv(mat, x), y)                   # reruns bitwise

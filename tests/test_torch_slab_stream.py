@@ -199,7 +199,8 @@ def test_dispatch_and_cpu_wrapper_counts_nothing():
     assert torch.equal(yd, y) and float(d) == pytest.approx(float(x @ y), rel=1e-5)
     B = torch.from_numpy(np.random.default_rng(5).standard_normal((1100, 3)).astype(np.float32))
     assert rel_err(tsm.spmm(ts, B), m @ B.numpy()) < 1e-5          # through CSR
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
+                            "slab_stream_spmm": 0}
 
 
 # -- the CUDA kernel's design, replayed on the host ---------------------------------
@@ -298,7 +299,8 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, rb):
     y = ksl.slab_stream_spmv(ts, x)
     y_ref = ksl.slab_stream_spmv_ref(ts, x)
     torch.cuda.synchronize()
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 1}
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 1,
+                            "slab_stream_spmm": 0}
     assert y.dtype == y_ref.dtype and y.shape == (ts.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert rel_err(y.cpu(), rg.spmv_walk(rg.plan_of(ts), x).cpu()) < TOL[dtype]

@@ -20,10 +20,16 @@ import torch
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import checkpoint as tck
+from sparsemat_tpu_torch import matgen
 from sparsemat_tpu_torch.interop import from_reference
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
+from sparsemat_tpu_torch.kernels import route as kr
 from sparsemat_tpu_torch.kernels import slab as ksl
 from sparsemat_tpu_torch.kernels import spmm as ksp
+from sparsemat_tpu_torch.kernels import strip as ks
+from sparsemat_tpu_torch.kernels import well as kw
 from sparsemat_tpu_torch.ops import matvec as tmv
+from sparsemat_tpu_torch.utils import profiling
 
 NEW_FORMATS = ["bsr", "ell", "slab", "slab_pack"]
 
@@ -403,8 +409,74 @@ def test_spmm_path_end_to_end():
     assert bool(info.converged) and bool(jinfo.converged)
     assert abs(int(info.iterations) - int(jinfo.iterations)) <= 1
     assert rel_err(x, jx) < 1e-8
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0}
+    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
+                            "slab_stream_spmm": 0}
     assert ksp.LAUNCHES["bsr_spmm"] == 0
+
+
+# -- the SpMM of the plan formats with no SpMM kernel in the JAX package -------------------
+
+#: format → (its freeze, its kernel module, the SpMM wrapper and launch name)
+PLAN_FORMATS = {"strip": (lambda c: c.to_strip(), ks, "strip_spmm"),
+                "well": (lambda c: c.to_well(), kw, "well_spmm"),
+                "slab_stream": (lambda c: c.to_slab_stream(), ksl, "slab_stream_spmm"),
+                "route": (lambda c: c.to_route(), kr, "route_spmm")}
+
+
+def fem():
+    """A small dof-blocked FEM band: 600 rows, 3 dof a node."""
+    return matgen.fem_block_band(n_nodes=200, bandwidth=40, seed=3)
+
+
+PLAN_MATRICES = {"fem": fem, "mixed": mixed}
+
+
+def conversions():
+    """The dispatch's conversions by target, those never made left out."""
+    return {k: n for k, n in profiling.trace_record()["counters"]["ops.conversions"].items()
+            if n}
+
+
+@pytest.mark.parametrize("m_rhs", [1, 8, 130])
+@pytest.mark.parametrize("name", list(PLAN_MATRICES))
+@pytest.mark.parametrize("fmt", list(PLAN_FORMATS))
+def test_plan_walk_of_the_plan_formats_matches_csr_spmm(fmt, name, m_rhs):
+    """The row-group SpMM's arithmetic, in its order, over the plan that a
+    StripELL, WELL, SlabStream or RouteStream launches it on a card: the
+    CSR SpMM of the same matrix, and scipy's f64 product."""
+    m = PLAN_MATRICES[name]()
+    mat = PLAN_FORMATS[fmt][0](tsm.CSR.from_scipy(m))
+    B = torch.from_numpy(np.random.default_rng(m_rhs).standard_normal((m.shape[1], m_rhs))
+                         .astype(np.float32))
+    plan = rg.plan_of(mat)
+    assert plan.nnz == m.nnz and (plan.group == 1) == (fmt == "route")
+    Y = rg.walk(plan, B)
+    assert Y.dtype == torch.float32 and Y.shape == (m.shape[0], m_rhs)
+    assert rel_err(Y, tsm.spmm(mat.to_csr(), B)) < 1e-5
+    assert rel_err(Y, m.astype(np.float64) @ B.double().numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("fmt", list(PLAN_FORMATS))
+def test_cpu_spmm_of_the_plan_formats_goes_through_csr(fmt):
+    """On the CPU the wrapper takes the plain path: one conversion to CSR a
+    call, the CSR's own SpMM, no launch."""
+    m = mixed()
+    freeze, mod, name = PLAN_FORMATS[fmt]
+    mat = freeze(tsm.CSR.from_scipy(m))
+    B = torch.from_numpy(np.random.default_rng(5).standard_normal((m.shape[1], 8))
+                         .astype(np.float32))
+    profiling.reset_trace()
+    try:
+        with profiling.tracing():
+            Y = tsm.spmm(mat, B)
+            assert torch.equal(mat @ B, Y)
+            assert torch.equal(getattr(mod, name)(mat, B), Y)
+        assert conversions() == {"csr": 3}
+        assert mod.LAUNCHES[name] == 0
+    finally:
+        profiling.reset_trace()
+    assert torch.equal(Y, tsm.spmm(mat.to_csr(), B))
+    assert rel_err(Y, m.astype(np.float64) @ B.double().numpy()) < 1e-5
 
 
 # -- the dispatch on a CUDA card (needs a card) ------------------------------------------------
@@ -437,6 +509,36 @@ def test_cuda_dispatch_goes_through_the_kernels(cuda):
     assert ksp.LAUNCHES["bsr_spmm"] == 5
     assert csr.to_slab_pack().overflow is not None         # the SlabPack has an overflow pack
     assert ksl.LAUNCHES == {"slab_spmm": 6,                # one launch a product
-                            "slab_spmv": 2, "slab_stream_spmv": 0}
+                            "slab_spmv": 2, "slab_stream_spmv": 0,
+                            "slab_stream_spmm": 0}
     for mat in (csr, csr.to_ell(), csr.to_coo()):          # no kernel of their own
         assert rel_err(tsm.spmm(mat, B).cpu(), want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PLAN_MATRICES))
+@pytest.mark.parametrize("fmt", list(PLAN_FORMATS))
+def test_cuda_spmm_of_the_plan_formats_launches_the_rowgroup_kernel(cuda, fmt, name):
+    """StripELL, WELL, SlabStream and RouteStream: one launch of the row-group
+    SpMM a call over the matrix's plan, and no conversion, at m = 1, 9 (a
+    ragged tile, scalar loads) and 128 (16-byte loads)."""
+    m = PLAN_MATRICES[name]()
+    freeze, mod, launch = PLAN_FORMATS[fmt]
+    mat = freeze(tsm.CSR.from_scipy(m, device=cuda))
+    profiling.reset_trace()
+    try:
+        for k, m_rhs in enumerate((1, 9, 128)):
+            B = torch.randn(m.shape[1], m_rhs, device=cuda)
+            want = m.astype(np.float64) @ B.double().cpu().numpy()
+            with profiling.tracing():
+                Y = tsm.spmm(mat, B)
+                torch.cuda.synchronize()
+                assert mod.LAUNCHES[launch] == 2 * k + 1
+                assert torch.equal(mat @ B, Y)               # reruns bitwise
+            assert Y.dtype == torch.float32 and Y.shape == (m.shape[0], m_rhs)
+            assert rel_err(Y.cpu(), want) < 1e-5
+            assert rel_err(Y.cpu(), rg.walk(rg.plan_of(mat), B).cpu()) < 1e-5
+        assert conversions() == {}
+        assert mod.LAUNCHES[launch] == 6
+    finally:
+        profiling.reset_trace()
