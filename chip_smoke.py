@@ -689,12 +689,19 @@ def record(times, name, k_ms, p_ms, n_bytes, flops, lib_ms):
     return b_ms, by
 
 
-def per_step(counts, run, k):
+def per_step(counts, run, k, operator=None):
     """Each kernel's launches per step of ``run`` (``run(j)`` takes j solver
     iterations, or makes j products): the rise of ``counts()`` over 2k steps
-    less its rise over k, divided by k, so launches outside the loop cancel."""
+    less its rise over k, divided by k, so launches outside the loop cancel.
+    The launch counters count host enqueues.  A solver loop over
+    ``operator`` with no block graph yet enqueues its first block op by op
+    and its second while capturing it, and a replay enqueues none: so the
+    operator's graphs are dropped before each run, the k-step run (one
+    block) is the op-by-op block and the 2k-step run adds the captured one."""
     rises = []
     for steps in (k, 2 * k):
+        if operator is not None:
+            operator.__dict__.pop("_solver_graphs", None)
         before = dict(counts())
         run(steps)
         torch.cuda.synchronize()
@@ -1105,7 +1112,7 @@ def fem_phases(dev, g, times, launches):
     b_ms, _ = record(times, "strip_spmv", k_ms, p_ms, need_v, 2 * nnz, lib)
     times["strip_spmv"]["bound_counts"] = of
     per = note_steps(times, "strip_spmv", per_step(
-        lambda: ks.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32)[
+        lambda: ks.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32, st)[
             "strip_spmv"], "PCG(Jacobi) iteration, FEM StripELL")
     d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "rowgroup_spmv_kernel",
                      lambda: ks.LAUNCHES["strip_spmv"]) / 1e3
@@ -1375,7 +1382,7 @@ def route_phases(dev, g, times, launches):
     say("16 times", "route kernel device ms by tile items (profiler): "
         + "; ".join(f"{k} {v:.4f} ({-(-(n + nnz) // k)} tiles)" for k, v in sweep.items()))
     per = per_step(lambda: kr.LAUNCHES,
-                   lambda j: solvers.bicgstab(rs, b, tol=0.0, maxiter=j), 32)
+                   lambda j: solvers.bicgstab(rs, b, tol=0.0, maxiter=j), 32, rs)
     note_steps(times, "route_spmv", per["route_spmv"], "BiCGStab iteration, circuit RouteStream")
     say("16 times", f"route launches per BiCGStab iteration {per}")
     plain = lambda v: kr.route_spmv_ref(rs, v)  # noqa: E731
@@ -2125,11 +2132,11 @@ def general_phases(dev, g, times, launches, poisson_csr):
         f"iters/s runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
         f"runs {[runs[0], runs[3]]}")
     per_w = note_steps(times, "well_spmv", per_step(
-        lambda: kw.LAUNCHES, lambda j: solvers.bicgstab(well, b, tol=0.0, maxiter=j), 32)[
-            "well_spmv"], "BiCGStab iteration, circuit WELL")
+        lambda: kw.LAUNCHES, lambda j: solvers.bicgstab(well, b, tol=0.0, maxiter=j), 32,
+        well)["well_spmv"], "BiCGStab iteration, circuit WELL")
     per_s = note_steps(times, "slab_stream_spmv", per_step(
-        lambda: ksl.LAUNCHES, lambda j: solvers.cg(st, bf, tol=0.0, maxiter=j, M=Mj), 32)[
-            "slab_stream_spmv"], "PCG(Jacobi) iteration, FEM SlabStream")
+        lambda: ksl.LAUNCHES, lambda j: solvers.cg(st, bf, tol=0.0, maxiter=j, M=Mj), 32,
+        st)["slab_stream_spmv"], "PCG(Jacobi) iteration, FEM SlabStream")
     say("24 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items())
         + f"; launches per iteration: well_spmv per BiCGStab {per_w}, slab_stream_spmv per "
         f"PCG {per_s}")
@@ -2751,7 +2758,8 @@ def main():
 
     # CG's loop takes the fused SpMV + dot; the plain SpMV runs once before
     # it, so the SpMV's step is a product of spmv
-    per = per_step(lambda: kd.LAUNCHES, lambda j: solvers.cg(dia, b, tol=0.0, maxiter=j), 32)
+    per = per_step(lambda: kd.LAUNCHES, lambda j: solvers.cg(dia, b, tol=0.0, maxiter=j), 32,
+                   dia)
     note_steps(times, "dia_spmv_dot", per["dia_spmv_dot"], "CG iteration, 2048² Poisson DIA")
     per_v = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv(dia, x) for _ in range(j)], 1)
     note_steps(times, "dia_spmv", per_v["dia_spmv"], "spmv(DIA, x) product, 2048² Poisson")

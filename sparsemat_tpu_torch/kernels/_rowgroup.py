@@ -272,15 +272,27 @@ class MergeSplit:
 
 
 def _scratch(store: dict, stream, dtype: torch.dtype, n_partial: int, n_tickets: int, dev):
-    """(partial, tickets) of a split's launches on ``stream`` in ``dtype``,
-    made once and kept in ``store`` (the launches of one stream run in
-    order): ``n_partial`` slots for the partial sums (None where there are
-    none), and ``n_tickets`` int32 arrival counters, zeroed once, since the
-    kernel's last arrival resets its counter."""
+    """(partial, tickets) of a split's launches on ``stream`` in ``dtype``:
+    ``n_partial`` slots for the partial sums (None where there are none),
+    and ``n_tickets`` int32 arrival counters at 0, which the kernel's last
+    arrival leaves at 0.
+
+    An eager launch takes the pair of its stream, made and zeroed once and
+    kept in ``store`` (the launches of one stream run in order).  A launch
+    being captured into a CUDA graph takes a pair of its own from the
+    graph's memory pool, its counters zeroed by a fill that the graph
+    replays before the kernel, as ``kernels/dia.py`` ``dot_scratch`` does:
+    so no eager launch on the capture's stream keeps memory of the graph's
+    pool, and no replay reads counters that another launch left in use."""
+    def made():
+        partial = torch.empty(n_partial, dtype=dtype, device=dev) if n_partial else None
+        return partial, torch.zeros(max(n_tickets, 1), dtype=torch.int32, device=dev)
+
+    if torch.cuda.is_current_stream_capturing():
+        return made()
     key = (stream.cuda_stream, dtype)
     if key not in store:
-        partial = torch.empty(n_partial, dtype=dtype, device=dev) if n_partial else None
-        store[key] = (partial, torch.zeros(max(n_tickets, 1), dtype=torch.int32, device=dev))
+        store[key] = made()
     return store[key]
 
 

@@ -12,24 +12,38 @@ blocks of ``SYNC_EVERY`` on the device: each step computes a device-side
 ``torch.where(active, new, old)``, and the host reads the condition once per
 block.  The state freezes once the condition fails and the counters count
 only active steps, so the final states and ``iterations`` equal the
-reference's.  GMRES keeps the reference's static restart window (its inner
-steps freeze instead of exiting) and reads the host once per cycle.
+reference's.  On a CUDA card, over a format whose product is a launch over a
+plan cached on the matrix, a block is captured once into a CUDA graph and
+replayed for every later block of every solve on that operator and stream
+(``_BlockGraph``): the same kernels in the same order, so the answers are
+bitwise the op-by-op loop's.  GMRES keeps the reference's static restart
+window (its inner steps freeze instead of exiting) and reads the host once
+per cycle.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .formats import DIA, WELL, RouteStream, SlabELL, SlabPack, SlabStream, StripELL
 from .types import is_float_dtype
 from .utils import profiling
 
 #: loop steps between two host reads of the loop condition
 SYNC_EVERY = 32
+#: the block graphs one operator keeps, the least recently used dropped first
+GRAPHS_PER_OPERATOR = 4
+#: the formats whose CUDA product (``ops/matvec.py``, no ``method``) is one
+#: launch over a plan cached on the matrix; the others convert or sort at
+#: call time, and their loops run op by op
+_GRAPH_FORMATS = (DIA, StripELL, WELL, SlabStream, SlabELL, SlabPack, RouteStream)
 
 
 class SolveInfo(NamedTuple):
@@ -99,26 +113,148 @@ def _threshold(b, tol, rtol):
                          rtol * torch.sqrt(_dot(b, b)))
 
 
-def _while(cond, body, state: dict, maxiter: int, on_step=None,
-           every: int = SYNC_EVERY) -> dict:
+def _block(cond, body, state: dict, consts: dict, every: int, on_step=None) -> dict:
+    """``every`` steps of the loop, each committed only where ``cond``
+    held."""
+    for _ in range(every):
+        active = cond(state, consts)
+        new = body(state, consts)
+        if on_step is not None:
+            on_step(active, new)
+        state = {k: torch.where(active, new[k], v) for k, v in state.items()}
+    return state
+
+
+def _eager_reason(A, M, state: dict, consts: dict, on_step, every: int) -> Optional[str]:
+    """Why the loop over ``A`` runs op by op, or None where its blocks can
+    be one CUDA graph: a format of ``_GRAPH_FORMATS`` (not a callable), no
+    preconditioner or one of this module's, no ``on_step``, more than one
+    step a block, and every tensor of the state, the invariants and the
+    preconditioner a plain tensor (no DTensor) on one CUDA card."""
+    if on_step is not None:
+        return "a callback sees every step"
+    if every < 2:
+        return "one step a block"
+    if not isinstance(A, _GRAPH_FORMATS):
+        return "the operator's product is not a launch over a cached plan"
+    if M is not None and not isinstance(M, (JacobiPreconditioner, BlockJacobiPreconditioner)):
+        return "a preconditioner of another kind"
+    tensors = [*state.values(), *consts.values()]
+    if M is not None:
+        tensors += [getattr(M, f.name) for f in dataclasses.fields(M)
+                    if isinstance(getattr(M, f.name), torch.Tensor)]
+    if any(type(t) is not torch.Tensor for t in tensors):
+        return "a tensor subclass (DTensor)"
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        return "not on one CUDA card"
+    return None
+
+
+class _BlockGraph:
+    """One block of a solver loop as a CUDA graph.  The loop's state and
+    its invariants live in static buffers that the graph reads; the
+    captured block ends by copying its committed state back into the
+    state's buffers, so each replay runs the next block.  Keeps ``M``
+    alive: the graph reads its tensors.  Its temporaries live in the
+    graph's own memory pool, the launches' scratch included
+    (``kernels/dia.py`` ``dot_scratch``, ``kernels/_rowgroup.py``
+    ``_scratch``)."""
+
+    def __init__(self, state: dict, consts: dict, M):
+        self.state = {k: v.clone() for k, v in state.items()}
+        self.consts = {k: v.clone() for k, v in consts.items()}
+        self.M = M
+        self.device = next(iter(self.state.values())).device
+        self.graph = None
+
+    def capture(self, cond, body, every: int) -> None:
+        # a side stream of the state's card (the default stream cannot capture)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(self.device)):
+            out = _block(cond, body, self.state, self.consts, every)
+            for k, v in out.items():
+                self.state[k].copy_(v)
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+    def load(self, state: dict, consts: dict) -> None:
+        for bufs, vals in ((self.state, state), (self.consts, consts)):
+            for k, v in vals.items():
+                bufs[k].copy_(v)
+
+
+def _signature(tensors: dict) -> tuple:
+    return tuple((k, v.dtype, tuple(v.shape)) for k, v in tensors.items())
+
+
+def _graph_key(body, M, state: dict, consts: dict, every: int) -> tuple:
+    """The key of a loop's block graph on its operator: the body's code,
+    ``every``, the preconditioner object, the tensors' dtypes and shapes,
+    and the stream the solve enqueues on (solves on two streams at once
+    share no buffers)."""
+    dev = next(iter(state.values())).device
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    return body.__code__, every, id(M), stream, _signature(state), _signature(consts)
+
+
+def _while(cond, body, state: dict, consts: dict, maxiter: int, *, A=None, M=None,
+           on_step=None, every: int = SYNC_EVERY) -> dict:
     """``lax.while_loop(cond, body, state)`` on the device for a loop whose
     condition includes ``k < maxiter``: steps run in blocks of ``every``,
-    each committed only where ``cond`` held, and the host reads ``cond``
-    once per block.  ``on_step(active, new)`` sees every step (for
-    histories).  While tracing is on (``utils.profiling``), each block's
-    enqueue is the span ``solver.block`` and the ``solver`` counters take
-    the steps executed and, from a state's ``k``, the steps committed."""
+    each committed only where ``cond(state, consts)`` held, and the host
+    reads ``cond`` once per block.  ``consts`` holds the loop's tensor
+    invariants (thresholds, right-hand sides, a solver's numbers, ``maxiter``
+    as a 0-d int32); ``cond`` and ``body`` read them from there and close
+    over no tensor or number of the solve.  ``on_step(active, new)`` sees
+    every step (for histories).
+
+    Where ``_eager_reason`` finds none, the blocks are one CUDA graph kept
+    on ``A`` under ``_graph_key``: a new key runs its first block op by op
+    (so every lazy plan and scratch is made outside the capture), then
+    captures the next and replays it; a known key loads the solve's state
+    and invariants into the graph's buffers and replays every block.  What
+    it returns are copies.
+
+    While tracing is on (``utils.profiling``), each block's enqueue (or
+    replay) is the span ``solver.block`` and the ``solver`` counters take
+    the steps executed, the steps replayed, the captures and, from a
+    state's ``k``, the steps committed."""
+    graphs = key = loop = None
+    if _eager_reason(A, M, state, consts, on_step, every) is None:
+        graphs = A.__dict__.get("_solver_graphs")
+        if graphs is None:
+            graphs = collections.OrderedDict()
+            object.__setattr__(A, "_solver_graphs", graphs)
+        key = _graph_key(body, M, state, consts, every)
+        loop = graphs.get(key)
+        if loop is not None:
+            graphs.move_to_end(key)
+            loop.load(state, consts)
     for _ in range(-(-max(int(maxiter), 0) // every)):
         with profiling.span("solver.block"):
-            for _ in range(every):
-                active = cond(state)
-                new = body(state)
-                if on_step is not None:
-                    on_step(active, new)
-                state = {k: torch.where(active, new[k], v) for k, v in state.items()}
+            if loop is None:
+                state = _block(cond, body, state, consts, every, on_step)
+            else:
+                loop.replay()
         profiling.count(profiling.SOLVER, "steps_executed", every)
-        if not bool(cond(state)):
+        if loop is not None:
+            profiling.count(profiling.SOLVER, "steps_replayed", every)
+        now = (state, consts) if loop is None else (loop.state, loop.consts)
+        if not bool(cond(*now)):
             break
+        if graphs is not None and loop is None:
+            loop = _BlockGraph(state, consts, M)
+            loop.capture(cond, body, every)
+            graphs[key] = loop
+            profiling.count(profiling.SOLVER, "graph_captures")
+            while len(graphs) > GRAPHS_PER_OPERATOR:
+                graphs.popitem(last=False)
+    if loop is not None:
+        state = {k: v.clone() for k, v in loop.state.items()}
     if "k" in state and profiling.on():
         # the loop's last host read has already waited for k
         profiling.count(profiling.SOLVER, "steps_committed", int(state["k"]))
@@ -127,6 +263,17 @@ def _while(cond, body, state: dict, maxiter: int, on_step=None,
 
 def _int32(v, device):
     return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+def _number(v: float, b):
+    """A solver's number as a 0-d tensor of ``b``'s dtype and device."""
+    return torch.tensor(v, dtype=b.dtype, device=b.device)
+
+
+def _limit(maxiter, device):
+    """``maxiter`` as the loop's 0-d int32 invariant (k never passes
+    2³¹ − 1, so a larger limit reads as that)."""
+    return _int32(min(math.ceil(maxiter), 2**31 - 1), device)
 
 
 # --- Conjugate Gradient ------------------------------------------------------
@@ -142,18 +289,18 @@ def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     matvec_dot = _as_matvec_dot(A)
     precond = _precond(M)
     threshold = _threshold(b, tol, rtol)
-    thresh2 = threshold * threshold
 
     x = _x0(b, x0)
     r = b - matvec(x)
     z = precond(r) if precond is not None else r
     state = dict(x=x, r=r, p=z, rz=_dot(r, z), rr=_dot(r, r),
                  k=_int32(0, b.device))
+    consts = dict(maxiter=_limit(maxiter, b.device), thresh2=threshold * threshold)
 
-    def cond(s):
-        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+    def cond(s, c):
+        return (s["k"] < c["maxiter"]) & (s["rr"] >= c["thresh2"])
 
-    def body(s):
+    def body(s, c):
         Ap, pAp = matvec_dot(s["p"])
         # guarded divisions: a breakdown (pAp = 0) stalls instead of
         # poisoning the state with NaN
@@ -172,7 +319,7 @@ def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         def on_step(active, new):
             hist.append(torch.where(active, torch.sqrt(new["rr"]), -1.0))
 
-    out = _while(cond, body, state, maxiter, on_step)
+    out = _while(cond, body, state, consts, maxiter, A=A, M=M, on_step=on_step)
     history = None
     if record_history:
         history = torch.full((maxiter,), -1.0, dtype=b.dtype, device=b.device)
@@ -200,14 +347,15 @@ def bicgstab(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     one = torch.ones((), dtype=b.dtype, device=b.device)
     state = dict(x=x, r=r0, p=r0, v=torch.zeros_like(b), rho=_dot(rhat, r0),
                  alpha=one, omega=one, k=_int32(0, b.device), rr=_dot(r0, r0))
+    consts = dict(maxiter=_limit(maxiter, b.device), threshold=threshold, rhat=rhat)
 
-    def cond(s):
-        return (s["k"] < maxiter) & (torch.sqrt(s["rr"]) >= threshold)
+    def cond(s, c):
+        return (s["k"] < c["maxiter"]) & (torch.sqrt(s["rr"]) >= c["threshold"])
 
-    def body(s):
+    def body(s, c):
         phat = precond(s["p"])
         v = matvec(phat)
-        rv = _dot(rhat, v)
+        rv = _dot(c["rhat"], v)
         alpha = torch.where(rv != 0, s["rho"] / rv, 0)
         h = s["x"] + alpha * phat
         sres = s["r"] - alpha * v
@@ -217,14 +365,14 @@ def bicgstab(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         omega = torch.where(tt > 0, _dot(t, sres) / tt, 0.0)
         x = h + omega * shat
         r = sres - omega * t
-        rho = _dot(rhat, r)
+        rho = _dot(c["rhat"], r)
         beta = torch.where((s["rho"] != 0) & (omega != 0),
                            (rho / s["rho"]) * (alpha / omega), 0)
         p = r + beta * (s["p"] - omega * v)
         return dict(x=x, r=r, p=p, v=v, rho=rho, alpha=alpha, omega=omega,
                     k=s["k"] + 1, rr=_dot(r, r))
 
-    out = _while(cond, body, state, maxiter)
+    out = _while(cond, body, state, consts, maxiter, A=A, M=M)
     res = torch.sqrt(out["rr"])
     return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
                                converged=res < threshold)
@@ -325,25 +473,25 @@ def chebyshev(A, b, x0=None, *, lambda_min: float, lambda_max: float,
     delta = (lambda_max - lambda_min) / 2.0
     sigma1 = theta / delta
     threshold = _threshold(b, tol, rtol)
-    thresh2 = threshold * threshold
 
     state = dict(x=_x0(b, x0), d=torch.zeros_like(b),
-                 rho=torch.tensor(sigma1, dtype=b.dtype, device=b.device),
-                 k=_int32(0, b.device),
+                 rho=_number(sigma1, b), k=_int32(0, b.device),
                  rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+    consts = dict(maxiter=_limit(maxiter, b.device), thresh2=threshold * threshold, b=b,
+                  theta=_number(theta, b), delta=_number(delta, b), sigma1=_number(sigma1, b))
 
-    def cond(s):
-        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+    def cond(s, c):
+        return (s["k"] < c["maxiter"]) & (s["rr"] >= c["thresh2"])
 
-    def body(s):
-        r = b - matvec(s["x"])
+    def body(s, c):
+        r = c["b"] - matvec(s["x"])
         first = s["k"] == 0
-        rho = torch.where(first, 1.0 / sigma1, 1.0 / (2.0 * sigma1 - s["rho"]))
-        d = torch.where(first, r / theta,
-                        rho * s["rho"] * s["d"] + (2.0 * rho / delta) * r)
+        rho = torch.where(first, 1.0 / c["sigma1"], 1.0 / (2.0 * c["sigma1"] - s["rho"]))
+        d = torch.where(first, r / c["theta"],
+                        rho * s["rho"] * s["d"] + (2.0 * rho / c["delta"]) * r)
         return dict(x=s["x"] + d, d=d, rho=rho, k=s["k"] + 1, rr=_dot(r, r))
 
-    out = _while(cond, body, state, maxiter)
+    out = _while(cond, body, state, consts, maxiter, A=A)
     res = torch.sqrt(out["rr"])
     return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
                                converged=res < threshold)
@@ -359,21 +507,22 @@ def jacobi(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     if not hasattr(A, "to_csr"):
         raise TypeError("jacobi needs a sparse format (for its diagonal)")
     d = A.to_csr().diagonal().to(b.dtype)
-    dinv = torch.where(d != 0, 1.0 / d, 0.0)
     threshold = _threshold(b, tol, rtol)
-    thresh2 = threshold * threshold
 
     state = dict(x=_x0(b, x0), k=_int32(0, b.device),
                  rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+    consts = dict(maxiter=_limit(maxiter, b.device), thresh2=threshold * threshold, b=b,
+                  wdinv=omega * torch.where(d != 0, 1.0 / d, 0.0))
 
-    def cond(s):
-        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+    def cond(s, c):
+        return (s["k"] < c["maxiter"]) & (s["rr"] >= c["thresh2"])
 
-    def body(s):
-        r = b - matvec(s["x"])
-        return dict(x=s["x"] + omega * dinv * r, k=s["k"] + 1, rr=_dot(r, r))
+    def body(s, c):
+        r = c["b"] - matvec(s["x"])
+        # ω·D⁻¹ is one invariant: ω · D⁻¹ · r multiplies ω · D⁻¹ first
+        return dict(x=s["x"] + c["wdinv"] * r, k=s["k"] + 1, rr=_dot(r, r))
 
-    out = _while(cond, body, state, maxiter)
+    out = _while(cond, body, state, consts, maxiter, A=A)
     res = torch.sqrt(out["rr"])
     return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
                                converged=res < threshold)
@@ -519,20 +668,21 @@ def sor(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         return X[:n]
 
     threshold = _threshold(b, tol, rtol)
-    thresh2 = threshold * threshold
     state = dict(x=_x0(b, x0), k=_int32(0, b.device),
                  rr=torch.tensor(float("inf"), dtype=b.dtype, device=b.device))
+    consts = dict(maxiter=_limit(maxiter, b.device), thresh2=threshold * threshold)
 
-    def cond(s):
-        return (s["k"] < maxiter) & (s["rr"] >= thresh2)
+    def cond(s, c):
+        return (s["k"] < c["maxiter"]) & (s["rr"] >= c["thresh2"])
 
-    def body(s):
+    def body(s, c):
         x = sweep(s["x"])
         r = b - spmv(A, x)
         return dict(x=x, k=s["k"] + 1, rr=_dot(r, r))
 
     # a sweep is many launches, so the host reads the condition after each
-    out = _while(cond, body, state, maxiter, every=1)
+    # (and the loop runs op by op)
+    out = _while(cond, body, state, consts, maxiter, every=1)
     res = torch.sqrt(out["rr"])
     return out["x"], SolveInfo(iterations=out["k"], residual_norm=res,
                                converged=res < threshold)

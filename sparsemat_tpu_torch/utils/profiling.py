@@ -24,14 +24,17 @@ while tracing is on.  ``trace_record()`` reads spans and counters;
 ``reset_trace()`` clears both.  ``trace_to`` exports a profiler's Chrome
 trace.
 
-Spans: ``solver.block`` (one block of ``solvers._while``'s steps, its
-host read of the condition left out), ``ops.spmv`` and ``ops.spmm`` (the
+Spans: ``solver.block`` (one block of ``solvers._while``'s steps, or its
+graph's replay, the host read of the condition left out), ``ops.spmv`` and ``ops.spmm`` (the
 public products), ``freeze.auto_format``, ``freeze.plan`` (a launch plan
 built: ``kernels/dia.py`` ``dia_spmv_plan``, ``kernels/_rowgroup.py``
 ``plan_of``) and ``freeze.build`` (a native library loaded, compiled first
 where its build is absent).  Counters: ``solver`` (``steps_executed``,
-``steps_committed``) and ``ops.conversions`` (the format conversions the
-products' dispatch makes at call time, by target format).
+``steps_committed``, and of the loops run as CUDA graphs ``steps_replayed``
+and ``graph_captures``) and ``ops.conversions`` (the format conversions the
+products' dispatch makes at call time, by target format).  The kernel
+modules' ``LAUNCHES`` count host enqueues: a launch captured into a CUDA
+graph counts once, at its capture, and a replay adds none.
 """
 
 from __future__ import annotations
@@ -208,7 +211,8 @@ def register(name: str, counts: dict) -> dict:
     return counts
 
 
-SOLVER = register("solver", {"steps_executed": 0, "steps_committed": 0})
+SOLVER = register("solver", {"steps_executed": 0, "steps_committed": 0, "steps_replayed": 0,
+                             "graph_captures": 0})
 CONVERSIONS = register("ops.conversions", {})
 
 

@@ -190,6 +190,8 @@ def test_cuda_route_kernel_solve_against_reference(cuda, seed):
     port, ref = both(m, b, None, rtol=1e-5, maxiter=2000, device=cuda)
     for x, k, ok in (ref, port):
         assert ok and true_residual(m, x, b) < 2e-5
-    # the initial residual's SpMV, then two a step over whole blocks of steps
+    # the initial residual's SpMV, then two a step, counted as the host
+    # enqueues them: over the first block, run op by op, and over the block
+    # captured into the loop's CUDA graph (a replay enqueues none)
     blocks = -(-k // solvers.SYNC_EVERY)
-    assert kr.LAUNCHES["route_spmv"] == 1 + 2 * solvers.SYNC_EVERY * blocks
+    assert kr.LAUNCHES["route_spmv"] == 1 + 2 * solvers.SYNC_EVERY * min(blocks, 2)

@@ -207,8 +207,10 @@ def test_steps_executed_and_committed(solver):
     blocks = rec["spans"]["solver.block"]["count"]
     assert bool(info.converged) and iters > 0
     assert blocks == math.ceil(iters / every)
+    # on the CPU the loop runs op by op: nothing replayed, nothing captured
     assert rec["counters"]["solver"] == {"steps_executed": every * blocks,
-                                         "steps_committed": iters}
+                                         "steps_committed": iters, "steps_replayed": 0,
+                                         "graph_captures": 0}
 
 
 def test_solver_counts_nothing_with_tracing_off():
@@ -216,7 +218,8 @@ def test_solver_counts_nothing_with_tracing_off():
     solvers.cg(A, torch.ones(144), tol=0.0, rtol=1e-5)
     rec = profiling.trace_record()
     assert "solver.block" not in rec["spans"]
-    assert rec["counters"]["solver"] == {"steps_executed": 0, "steps_committed": 0}
+    assert rec["counters"]["solver"] == {"steps_executed": 0, "steps_committed": 0,
+                                         "steps_replayed": 0, "graph_captures": 0}
 
 
 # -- the dispatch ------------------------------------------------------------------------
