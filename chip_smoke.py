@@ -71,7 +71,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 threads, each checked against the plain chain
   8 dia dtypes  the DIA kernels on bf16, f16 and f32-matrix × f64-x operands
                 against their plain versions
-  9 strip       the row-group SpMV through the StripELL wrapper against its
+  9 strip       the row-group SpMV through spmv of a StripELL against its
                 plain version and its plan's walk, f32, f64 and bf16 values:
                 the JAX package's test shapes, rectangular 5000×900 and
                 300×9000, a stored zero, an empty matrix, lidx_pack 1/2/4,
@@ -87,7 +87,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 nonsymmetric variant, f64 refinement over f32 PCG; the strip
                 launch counter must be > 0; true residuals in f64 on the host
  11 determinism strip spmv and the PCG(Jacobi) run rerun bitwise
- 12 times       strip SpMV vs plain with CUDA events (per call, wrapper
+ 12 times       strip SpMV vs plain with CUDA events (per call, dispatch
                 included) and the kernel's device time (profiler), GB/s of
                 the plan, x and y, and PCG(Jacobi) iterations/s through the
                 kernel and the plain version
@@ -117,12 +117,12 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 spanning rows, longest span); launches per BiCGStab
                 iteration; BiCGStab iterations/s through the kernel and the
                 plain version, and the host seconds of the path's steps
- 17 bsr         the row-group SpMM kernel through the BSR wrapper against
+ 17 bsr         the row-group SpMM kernel through spmm of a BSR against
                 its plain version, f32, f64 and bf16 blocks: the JAX
                 package's test shapes (64×256 m = 64, 100×300 m = 129),
                 empty block rows, blocks 8/16/512 × 128/256, a stored zero,
                 m = 0, nnz = 0; from_csr_device against the host freeze
- 18 slab        the row-group SpMV and SpMM kernels through the slab wrappers
+ 18 slab        the row-group SpMV and SpMM kernels through spmv and spmm
                 against their plain versions, f32, f64 and bf16 values, m = 1, 5,
                 17, 128, 129: SlabELL at rb 128 and 256, SlabPack with and
                 without spill (an overflow pack), a rectangular matrix, an
@@ -141,14 +141,14 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 spmm rerun bitwise, and SlabPack and SlabELL spmv are
                 bitwise equal
  20 times       each kernel of the path against its plain version (CUDA
-                events per call, wrapper included) and its device time
-                (profiler): the SpMM through the BSR, SlabPack and SlabELL
-                wrappers in Tflop/s of 2·nnz·m and GB/s of the plan, B and
+                events per call, dispatch included) and its device time
+                (profiler): the SpMM of the BSR, SlabPack and SlabELL
+                in Tflop/s of 2·nnz·m and GB/s of the plan, B and
                 Y, and through the SlabPack at m = 1, 17, 129 and in f64
                 beside torch.sparse.mm, SlabPack and SlabELL SpMV in GB/s of
                 the plan, x and y and of spmv_traffic_bytes beside the strip
                 SpMV; the host seconds of the freezes and plans
- 21 well        the row-group SpMV through the WELL wrapper against its plain
+ 21 well        the row-group SpMV through spmv of a WELL against its plain
                 version, f32, f64 and bf16 values: tests/test_well.py's
                 matrices (random 300², wide 64×1000, tall 1000×64, empty
                 rows, a dense row), k_tile = 4 overflow tiles, a stored
@@ -156,7 +156,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 the plan's walk, reruns bitwise), empty groups; where x
                 holds inf or NaN, the SpMV of a WELL, a SlabELL and a
                 SlabPack against scipy's CSR SpMV
- 22 slab stream the row-group SpMV through the SlabStream wrapper against its
+ 22 slab stream the row-group SpMV through spmv of a SlabStream against its
                 plain version and its plan's walk, f32, f64 and bf16 values:
                 mixed-degree 2000 at rb 256 and 1100 at rb 128, rectangular
                 300×900 and 900×300, an empty matrix, a stored zero
@@ -179,7 +179,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 > 0; WELL spmv, SlabStream spmv, rmatvec and BiCGStab rerun
                 bitwise
  24 times       the WELL and SlabStream SpMVs against their plain versions
-                (CUDA events per call, wrapper included) and their device
+                (CUDA events per call, dispatch included) and their device
                 time (profiler), GB/s of the plan, x and y and of
                 spmv_traffic_bytes, BiCGStab iterations/s through the
                 row-group SpMV over WELL and PCG(Jacobi) iterations/s over
@@ -292,6 +292,7 @@ from sparsemat_tpu_torch.kernels import spmm as ksp
 from sparsemat_tpu_torch.kernels import strip as ks
 from sparsemat_tpu_torch.kernels import well as kw
 from sparsemat_tpu_torch.native import get_lib
+from sparsemat_tpu_torch.ops import matvec as tmv
 from sparsemat_tpu_torch.parallel import dist as pdist
 from sparsemat_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -327,6 +328,8 @@ SEED = 0
 #: the true relative residual (f64, host) each converged solve must meet
 SOLVE_RTOL = 1e-5
 SOLVE_TRUE_REL = 1e-4
+#: the circuit path's launch keys (the plan group's RouteStream products)
+ROUTE_KEYS = ("route_spmv", "route_spmm")
 #: the H100 SXM's published device-memory rate and f32 rate outside the
 #: tensor cores (the kernels' f32 arithmetic): the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -530,7 +533,7 @@ def dia_spmv_times(dev, g, times, dia, csr, nb=1 << 24):
     the 2048² Poisson operator, and the SpMV with its dot (row 2) at 2048²
     in f32 and f64.  Each is held to its plain version, then timed in three
     measured calls between two of the plain version (CUDA events per call,
-    wrapper included), with their spread, its device time (profiler), the
+    dispatch included), with their spread, its device time (profiler), the
     plan's picks and, as an informative figure, the library's two calls
     torch.mv on the CSR and torch.dot.  One call of the dot launches one
     device kernel and nothing else.  Adds rows 1 and 2 to ``times``."""
@@ -846,8 +849,8 @@ def true_rel(csr, x, b):
 def device_us(fn, iters, key, launched):
     """Device µs per call of the kernels whose name holds ``key``, from a
     torch.profiler trace of ``iters`` calls of ``fn``: the mean time per
-    recorded launch times the launches per call, which ``launched`` (the
-    wrappers' launch count) gives.  The profiler can drop the records of
+    recorded launch times the launches per call, which ``launched`` (a
+    launch counter) gives.  The profiler can drop the records of
     long kernels late in a process (two of five 10 ms launches recorded
     in one run, none of twenty short ones in another), so a shortfall is
     printed and not taken as zero time, and a trace that recorded nothing
@@ -988,7 +991,7 @@ def fem_phases(dev, g, times, launches):
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             s_dt = st.astype(dt)
             x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
-            y = ks.strip_spmv(s_dt, x_dt)
+            y = tsm.spmv(s_dt, x_dt)
             y_ref = ks.strip_spmv_ref(s_dt, x_dt)
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("strip_spmv", y, y_ref, TOL[dt]["y"], f"strip {label} {dt}"))
@@ -1004,7 +1007,7 @@ def fem_phases(dev, g, times, launches):
     t0 = time.perf_counter()
     rows, cols, vals, n, lam_max = fem_triplets()
     t_gen = time.perf_counter() - t0
-    ks.reset_launches()
+    krg.reset_launches()
     csr, st, (t_add, t_csr, t_strip) = assemble_strip(rows, cols, vals, n, dev)
     del rows, cols, vals
     t0 = time.perf_counter()
@@ -1020,8 +1023,8 @@ def fem_phases(dev, g, times, launches):
     B128 = torch.randn(n, 128, generator=g, device=dev)
     Y_st = tsm.spmm(st, B128)               # the row-group SpMM over the same plan
     torch.cuda.synchronize()
-    check(ks.LAUNCHES["strip_spmm"] == 1, f"spmm(StripELL) launched strip_spmm "
-                                          f"{ks.LAUNCHES['strip_spmm']} times, not once")
+    check(krg.LAUNCHES["strip_spmm"] == 1, f"spmm(StripELL) launched strip_spmm "
+                                          f"{krg.LAUNCHES['strip_spmm']} times, not once")
     e_spmm = compare(None, Y_st, tsm.spmm(csr, B128), 1e-5,
                      "fem spmm strip kernel vs the CSR SpMM, m = 128")
     del B128, Y_st
@@ -1069,13 +1072,13 @@ def fem_phases(dev, g, times, launches):
            *solvers.gmres(st_ns, b, tol=0.0, rtol=SOLVE_RTOL, restart=30, maxiter=3000),
            csr_ns, b)
     torch.cuda.synchronize()
-    launches["strip_spmv"] = ks.LAUNCHES["strip_spmv"]
+    launches["strip_spmv"] = krg.LAUNCHES["strip_spmv"]
     check(launches["strip_spmv"] > 0, "the FEM path launched strip_spmv no time")
 
     # the kernel against its plain version at full size, f32 and f64
     e_full = compare("strip_spmv", y_st, ks.strip_spmv_ref(st, x), 1e-5, "fem strip f32")
     st64, x64 = st.astype(torch.float64), x.double()
-    e_full64 = compare("strip_spmv", ks.strip_spmv(st64, x64), ks.strip_spmv_ref(st64, x64),
+    e_full64 = compare("strip_spmv", tsm.spmv(st64, x64), ks.strip_spmv_ref(st64, x64),
                        1e-12, "fem strip f64")
     del st64
     parts = [p.c_total for p in st.parts]
@@ -1102,7 +1105,7 @@ def fem_phases(dev, g, times, launches):
     say("11 determinism", "strip spmv and PCG(Jacobi) rerun bitwise equal")
 
     # 12 -----------------------------------------------------------------------
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: ks.strip_spmv(st, x),
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: tsm.spmv(st, x),
                                            lambda: ks.strip_spmv_ref(st, x), 20)
     A_lib = torch_csr(csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
@@ -1112,10 +1115,10 @@ def fem_phases(dev, g, times, launches):
     b_ms, _ = record(times, "strip_spmv", k_ms, p_ms, need_v, 2 * nnz, lib)
     times["strip_spmv"]["bound_counts"] = of
     per = note_steps(times, "strip_spmv", per_step(
-        lambda: ks.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32, st)[
+        lambda: krg.LAUNCHES, lambda j: solvers.cg(st, b, tol=0.0, maxiter=j, M=Mj), 32, st)[
             "strip_spmv"], "PCG(Jacobi) iteration, FEM StripELL")
-    d_ms = device_us(lambda: ks.strip_spmv(st, x), 20, "rowgroup_spmv_kernel",
-                     lambda: ks.LAUNCHES["strip_spmv"]) / 1e3
+    d_ms = device_us(lambda: tsm.spmv(st, x), 20, "rowgroup_spmv_kernel",
+                     lambda: krg.LAUNCHES["strip_spmv"]) / 1e3
     mp = (plan.nbytes + sum(csr.shape) * 4) / 1e6          # the plan, x and y once each
     say("12 times", f"strip spmv fem f32: kernel {k_ms:.4f} ms per call "
         f"({nnz / k_ms / 1e6:.3f} Gnnz/s) runs {k_runs}, of it {d_ms:.4f} ms on the device "
@@ -1175,13 +1178,13 @@ def heavy_route_row():
 
 
 def check_route_kernel(rs, x, tol, what, tiles=(8, 16)):
-    """The route kernel through the wrapper (the plan's own split) and over
+    """The route kernel through ``spmv`` (the plan's own split) and over
     splits of ``tiles`` items against its plain version (the table halves)
     and bitwise against the walk of the same split; reruns bitwise.  The
     worst relative error."""
-    y, y_ref = kr.route_spmv(rs, x), kr.route_spmv_ref(rs, x)
+    y, y_ref = tsm.spmv(rs, x), kr.route_spmv_ref(rs, x)
     check(y.dtype == y_ref.dtype, f"{what}: dtype {y.dtype} vs {y_ref.dtype}")
-    check(torch.equal(kr.route_spmv(rs, x), y), f"route_spmv {what}: rerun differs")
+    check(torch.equal(tsm.spmv(rs, x), y), f"route_spmv {what}: rerun differs")
     plan = krg.plan_of(rs)
     errs = []
     for split in [plan.merge] + [krg.MergeSplit(plan, t) for t in tiles]:
@@ -1258,7 +1261,7 @@ def route_phases(dev, g, times, launches):
         tio.save_mtx(tsm.CSR.from_scipy(m), mtx)
         host["save_mtx"] = time.perf_counter() - t0
         mtx_mb = os.path.getsize(mtx) / 1e6
-        kr.reset_launches()
+        krg.reset_launches()
         t0 = time.perf_counter()
         csr = tio.load_mtx(mtx, device=dev)
         torch.cuda.synchronize()
@@ -1311,8 +1314,8 @@ def route_phases(dev, g, times, launches):
                      "circuit spmm route_spmm kernel vs the CSR SpMM, m = 16")
     del B16
     torch.cuda.synchronize()
-    for name in kr.LAUNCHES:
-        launches[name] = kr.LAUNCHES[name]
+    for name in ROUTE_KEYS:
+        launches[name] = krg.LAUNCHES[name]
         check(launches[name] > 0, f"the circuit path launched {name} no time")
 
     full = []
@@ -1328,7 +1331,7 @@ def route_phases(dev, g, times, launches):
         f"f32 {full[0]:.2e} f64 {full[1]:.2e} (and bitwise equal to the walk); solves to rtol {SOLVE_RTOL} (iterations, true "
         "relative residual f64): "
         + "; ".join(f"{k} {it} {r:.3e}" for k, (it, r) in report.items())
-        + f"; route launches {({k: launches[k] for k in kr.LAUNCHES})}")
+        + f"; route launches {({k: launches[k] for k in ROUTE_KEYS})}")
 
     # 15 -----------------------------------------------------------------------
     check(torch.equal(tsm.spmv(rs, x), y), "route spmv rerun differs")
@@ -1344,10 +1347,10 @@ def route_phases(dev, g, times, launches):
     split = plan.merge
     need = need_bytes(nnz, csr.shape)
     mb = (plan.nbytes + 2 * n * 4) / 1e6        # what the kernel reads and writes
-    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kr.route_spmv(rs, x),
+    k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: tsm.spmv(rs, x),
                                            lambda: kr.route_spmv_ref(rs, x), 20)
-    d_ms = device_us(lambda: kr.route_spmv(rs, x), 20, "route_spmv_kernel",
-                     lambda: kr.LAUNCHES["route_spmv"]) / 1e3
+    d_ms = device_us(lambda: tsm.spmv(rs, x), 20, "route_spmv_kernel",
+                     lambda: krg.LAUNCHES["route_spmv"]) / 1e3
     A_lib = torch_csr(csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
     del A_lib
@@ -1378,13 +1381,14 @@ def route_phases(dev, g, times, launches):
         check(torch.equal(kr.launch(plan, sp_, x), kr.route_spmv_walk(plan, sp_, x)),
               f"route_spmv at {items} items differs from its walk")
         sweep[items] = device_us(lambda: kr.launch(plan, sp_, x), 20, "route_spmv_kernel",
-                                 lambda: kr.LAUNCHES["route_spmv"]) / 1e3
+                                 lambda: krg.LAUNCHES["route_spmv"]) / 1e3
     say("16 times", "route kernel device ms by tile items (profiler): "
         + "; ".join(f"{k} {v:.4f} ({-(-(n + nnz) // k)} tiles)" for k, v in sweep.items()))
-    per = per_step(lambda: kr.LAUNCHES,
+    per = per_step(lambda: krg.LAUNCHES,
                    lambda j: solvers.bicgstab(rs, b, tol=0.0, maxiter=j), 32, rs)
     note_steps(times, "route_spmv", per["route_spmv"], "BiCGStab iteration, circuit RouteStream")
-    say("16 times", f"route launches per BiCGStab iteration {per}")
+    say("16 times", "route launches per BiCGStab iteration "
+        f"{({k: per[k] for k in ROUTE_KEYS})}")
     plain = lambda v: kr.route_spmv_ref(rs, v)  # noqa: E731
     runs = [bicgstab_iters_per_s(plain, b, 32), bicgstab_iters_per_s(rs, b, 128),
             bicgstab_iters_per_s(rs, b, 128), bicgstab_iters_per_s(plain, b, 32)]
@@ -1485,9 +1489,9 @@ def slab_cases():
 def slab_ops(mat):
     """(spmv, spmv plain, spmm, spmm plain) of a SlabELL or SlabPack."""
     if isinstance(mat, tsm.SlabPack):
-        return (ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref, ksl.slab_pack_spmm,
+        return (tsm.spmv, ksl.slab_pack_spmv_ref, tsm.spmm,
                 ksl.slab_pack_spmm_ref)
-    return ksl.slab_spmv, ksl.slab_spmv_ref, ksl.slab_spmm, ksl.slab_spmm_ref
+    return tsm.spmv, ksl.slab_spmv_ref, tsm.spmm, ksl.slab_spmm_ref
 
 
 def check_non_finite_b(dev):
@@ -1508,8 +1512,8 @@ def check_non_finite_b(dev):
     csr = tsm.CSR.from_scipy(m, device=dev)
     Bt = torch.from_numpy(B).to(dev)
     out = {}
-    for label, mat, fn, ref in (("bsr", tsm.BSR.from_csr(csr), ksp.bsr_spmm, ksp.bsr_spmm_ref),
-                                ("slab", csr.to_slab(rb=128), ksl.slab_spmm, ksl.slab_spmm_ref)):
+    for label, mat, fn, ref in (("bsr", tsm.BSR.from_csr(csr), tsm.spmm, ksp.bsr_spmm_ref),
+                                ("slab", csr.to_slab(rb=128), tsm.spmm, ksl.slab_spmm_ref)):
         got = fn(mat, Bt).cpu().numpy()
         inf = np.isinf(want)
         check(np.array_equal(np.isnan(got), np.isnan(want))
@@ -1558,7 +1562,7 @@ def spmm_phases(dev, g, times, launches):
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             b_dt = bsr.astype(dt)
             B_dt = Bs.to(torch.float32 if dt == torch.bfloat16 else dt)
-            Y, Y_ref = ksp.bsr_spmm(b_dt, B_dt), ksp.bsr_spmm_ref(b_dt, B_dt)
+            Y, Y_ref = tsm.spmm(b_dt, B_dt), ksp.bsr_spmm_ref(b_dt, B_dt)
             check(Y.dtype == Y_ref.dtype, f"{label}: dtype {Y.dtype} vs {Y_ref.dtype}")
             errs.append(compare("bsr_spmm", Y, Y_ref, TOL[dt]["y"], f"bsr {label} {dt}"))
         worst[label] = max(errs)
@@ -1571,7 +1575,7 @@ def spmm_phases(dev, g, times, launches):
               and torch.equal(host.block_rows, devf.block_rows)
               and torch.equal(host.block_cols, devf.block_cols) and devf.occ is None,
               f"from_csr_device br={br} differs from the host freeze")
-        check(torch.equal(ksp.bsr_spmm(host, Bh), ksp.bsr_spmm(devf, Bh)),
+        check(torch.equal(tsm.spmm(host, Bh), tsm.spmm(devf, Bh)),
               f"bsr_spmm of the device freeze br={br} differs")
     torch.cuda.synchronize()
     say("17 bsr", "kernel vs plain within tolerance (f32, f64, bf16 blocks); from_csr_device "
@@ -1618,8 +1622,7 @@ def spmm_phases(dev, g, times, launches):
     B = torch.from_numpy(B_host).to(dev)
     x = torch.randn(n, generator=g, device=dev)
     torch.cuda.synchronize()
-    ksp.reset_launches()
-    ksl.reset_launches()
+    krg.reset_launches()
     t0 = time.perf_counter()
     bsr = tsm.BSR.from_csr_device(csr, br=512, bc=128)
     torch.cuda.synchronize()
@@ -1670,7 +1673,7 @@ def spmm_phases(dev, g, times, launches):
     check(torch.equal(tsm.spmv(pk2, x), y_pk), "the reloaded SlabPack's spmv differs")
     torch.cuda.synchronize()
     for name in ("bsr_spmm", "slab_spmv", "slab_spmm"):
-        launches[name] = {**ksp.LAUNCHES, **ksl.LAUNCHES}[name]
+        launches[name] = krg.LAUNCHES[name]
         check(launches[name] > 0, f"the FEM SpMM path launched {name} no time")
 
     spot = compare(None, Y_bsr[:256, :8].cpu(), torch.from_numpy(ref_y), 1e-3,
@@ -1734,17 +1737,16 @@ def spmm_phases(dev, g, times, launches):
     need_mm = need_bytes(nnz, csr.shape, m_rhs)
 
     def spmm_times(row, name, label, mat, kernel_fn, plain_fn, plain_iters):
-        """Time one SpMM wrapper at m = 128 into ``row[name]`` (kernel,
+        """Time one format's SpMM at m = 128 into ``row[name]`` (kernel,
         plain, bound, library, launches per product) and print it."""
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kernel_fn(mat, B),
                                                lambda: plain_fn(mat, B), 20, plain_iters)
         b_ms, _ = record(row, name, k_ms, p_ms, need_mm, useful, lib_mm)
-        counts = ksp.LAUNCHES if name == "bsr_spmm" else ksl.LAUNCHES
         per = note_steps(row, name, per_step(
-            lambda: counts, lambda j: [tsm.spmm(mat, B) for _ in range(j)], 1)[name],
+            lambda: krg.LAUNCHES, lambda j: [tsm.spmm(mat, B) for _ in range(j)], 1)[name],
             f"spmm({label}, B) product")
         d_ms = device_us(lambda: kernel_fn(mat, B), 20, "rowgroup_spmm_kernel",
-                         lambda: counts[name]) / 1e3
+                         lambda: krg.LAUNCHES[name]) / 1e3
         moved = plans[label].nbytes + 2 * n * m_rhs * 4        # the plan, B and Y once each
         say("20 times", f"{label} spmm fem m=128 f32 ({name}): kernel {k_ms:.4f} ms per call "
             f"runs {k_runs}, of it {d_ms:.4f} ms on the device (profiler): "
@@ -1752,20 +1754,20 @@ def spmm_phases(dev, g, times, launches):
             f"the plan, B and Y ({moved} bytes); plain {p_ms:.4f} ms runs {p_runs}; bound "
             f"{b_ms:.4f} ms; torch.sparse.mm on the CSR {lib_mm} ms; launches per product {per}")
 
-    spmm_times(times, "bsr_spmm", "BSR", bsr, ksp.bsr_spmm, ksp.bsr_spmm_ref, 5)
+    spmm_times(times, "bsr_spmm", "BSR", bsr, tsm.spmm, ksp.bsr_spmm_ref, 5)
     del bsr, Y_bsr
-    spmm_times(times, "slab_spmm", "SlabPack", pk, ksl.slab_pack_spmm, ksl.slab_pack_spmm_ref, 2)
+    spmm_times(times, "slab_spmm", "SlabPack", pk, tsm.spmm, ksl.slab_pack_spmm_ref, 2)
     slab_ell = {}                  # the SlabELL row: the same kernel, so not a JSON kernel row
-    spmm_times(slab_ell, "slab_spmm", "SlabELL", sl, ksl.slab_spmm, ksl.slab_spmm_ref, 2)
+    spmm_times(slab_ell, "slab_spmm", "SlabELL", sl, tsm.spmm, ksl.slab_spmm_ref, 2)
     say("20 times", "SlabELL spmm row " + json.dumps(slab_ell["slab_spmm"]))
     widths = []
     for m_w, dt in ((1, torch.float32), (17, torch.float32), (129, torch.float32),
                     (128, torch.float64)):
         B_w = B[:, :1].repeat(1, m_w).to(dt)
         A_w = A_lib if dt == torch.float32 else torch_csr(csr.astype(dt))
-        compare("slab_spmm", ksl.slab_pack_spmm(pk, B_w), krg.walk(plans["SlabPack"], B_w),
+        compare("slab_spmm", tsm.spmm(pk, B_w), krg.walk(plans["SlabPack"], B_w),
                 TOL[dt]["y"], f"fem pack spmm m={m_w} {dt} vs its plan's walk")
-        k_w = cuda_ms(lambda: ksl.slab_pack_spmm(pk, B_w), 20)
+        k_w = cuda_ms(lambda: tsm.spmm(pk, B_w), 20)
         lib_w = cuda_ms(lambda: torch.sparse.mm(A_w, B_w), 20)
         widths.append(f"m={m_w} {str(dt)[6:]} kernel {k_w:.4f} torch.sparse.mm {lib_w:.4f}")
     say("20 times", "SlabPack spmm at other widths, ms per call: " + "; ".join(widths))
@@ -1773,20 +1775,20 @@ def spmm_phases(dev, g, times, launches):
     need_v, of = spmv_need(plans["SlabPack"], csr)
     lib = library_ms(lambda: torch.mv(A_lib, x), 20)
     st = csr.to_strip()
-    s_ms = cuda_ms(lambda: ks.strip_spmv(st, x), 20)
+    s_ms = cuda_ms(lambda: tsm.spmv(st, x), 20)
     for label, mat, kernel_fn, plain_fn in (
-            ("SlabPack", pk, ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref),
-            ("SlabELL", sl, ksl.slab_spmv, ksl.slab_spmv_ref)):
+            ("SlabPack", pk, tsm.spmv, ksl.slab_pack_spmv_ref),
+            ("SlabELL", sl, tsm.spmv, ksl.slab_spmv_ref)):
         row = times if label == "SlabPack" else {}       # one JSON row: one kernel, one plan
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kernel_fn(mat, x),
                                                lambda: plain_fn(mat, x), 20)
         b_ms, _ = record(row, "slab_spmv", k_ms, p_ms, need_v, 2 * nnz, lib)
         row["slab_spmv"]["bound_counts"] = of
         per_v = note_steps(row, "slab_spmv", per_step(
-            lambda: ksl.LAUNCHES, lambda j: [tsm.spmv(mat, x) for _ in range(j)], 1)[
+            lambda: krg.LAUNCHES, lambda j: [tsm.spmv(mat, x) for _ in range(j)], 1)[
                 "slab_spmv"], f"spmv({label}, x) product")
         d_ms = device_us(lambda: kernel_fn(mat, x), 20, "rowgroup_spmv_kernel",
-                         lambda: ksl.LAUNCHES["slab_spmv"]) / 1e3
+                         lambda: krg.LAUNCHES["slab_spmv"]) / 1e3
         mb, mp = mat.spmv_traffic_bytes() / 1e6, need_v / 1e6
         say("20 times", f"{label} spmv fem f32: kernel {k_ms:.4f} ms per call runs {k_runs}, "
             f"of it {d_ms:.4f} ms on the device (profiler): {mp / d_ms:.1f} GB/s of the plan, "
@@ -1808,7 +1810,7 @@ def heavy_row(n=3000):
 
 
 def well_cases():
-    """(label, scipy matrix, k_tile) for the WELL wrapper against its plain
+    """(label, scipy matrix, k_tile) for the SpMV of a WELL against its plain
     version: tests/test_well.py's matrices, k_tile = 4 overflow tiles, a
     stored zero, nnz = 0 and a heavy row."""
     rng = np.random.default_rng(0)
@@ -1836,7 +1838,7 @@ def well_cases():
 
 def check_non_finite_x(dev):
     """Where x holds inf or NaN, the row-group SpMV gives scipy's CSR SpMV
-    answer through each of its five wrappers: a stored zero meets inf
+    answer through each of its five formats: a stored zero meets inf
     (0 · inf = NaN in both), and a column that only padding slots point at
     holds NaN (no NaN from it, where the plain versions give one)."""
     m = sprinkled(300, 520, 0.03, 11, zeros=(0,)).tocoo()
@@ -1851,12 +1853,12 @@ def check_non_finite_x(dev):
     csr = tsm.CSR.from_scipy(m, device=dev)
     xt = torch.from_numpy(x).to(dev)
     out = {}
-    for label, mat, fn, ref in (("well", csr.to_well(), kw.well_spmv, kw.well_spmv_ref),
-                                ("slab", csr.to_slab(rb=128), ksl.slab_spmv, ksl.slab_spmv_ref),
-                                ("pack", csr.to_slab_pack(), ksl.slab_pack_spmv,
+    for label, mat, fn, ref in (("well", csr.to_well(), tsm.spmv, kw.well_spmv_ref),
+                                ("slab", csr.to_slab(rb=128), tsm.spmv, ksl.slab_spmv_ref),
+                                ("pack", csr.to_slab_pack(), tsm.spmv,
                                  ksl.slab_pack_spmv_ref),
-                                ("strip", csr.to_strip(), ks.strip_spmv, ks.strip_spmv_ref),
-                                ("slab stream", csr.to_slab_stream(rb=128), ksl.slab_stream_spmv,
+                                ("strip", csr.to_strip(), tsm.spmv, ks.strip_spmv_ref),
+                                ("slab stream", csr.to_slab_stream(rb=128), tsm.spmv,
                                  ksl.slab_stream_spmv_ref)):
         got = fn(mat, xt).cpu().numpy()
         check(np.array_equal(np.isnan(got), np.isnan(want)),
@@ -1901,16 +1903,16 @@ def general_phases(dev, g, times, launches, poisson_csr):
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             w_dt = well.astype(dt)
             x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
-            y, y_ref = kw.well_spmv(w_dt, x_dt), kw.well_spmv_ref(w_dt, x_dt)
+            y, y_ref = tsm.spmv(w_dt, x_dt), kw.well_spmv_ref(w_dt, x_dt)
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("well_spmv", y, y_ref, TOL[dt]["y"], f"well {label} {dt}"))
         worst[f"{label} (K {well.k_tile}, {well.n_tiles} tiles)"] = max(errs)
         plan = krg.plan_of(well)
         if label == "heavy row":            # the heavy row's group takes the partials path
             check(plan.spmv.n_multi > 0, "the heavy row was not cut into segments")
-            y = kw.well_spmv(well, xs)
+            y = tsm.spmv(well, xs)
             compare(None, y, krg.spmv_walk(plan, xs), 1e-5, "heavy row vs its plan's walk")
-            check(all(torch.equal(kw.well_spmv(well, xs), y) for _ in range(5)),
+            check(all(torch.equal(tsm.spmv(well, xs), y) for _ in range(5)),
                   "heavy row: reruns differ")
             heavy = (f"heavy row: {int(plan.spmv.multi[:, 2].max())} segments of at most "
                      f"{plan.spmv.seg_cols} union columns, reruns bitwise equal")
@@ -1933,7 +1935,7 @@ def general_phases(dev, g, times, launches, poisson_csr):
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             s_dt = st.astype(dt)
             x_dt = xs.to(torch.float32 if dt == torch.bfloat16 else dt)
-            y, y_ref = ksl.slab_stream_spmv(s_dt, x_dt), ksl.slab_stream_spmv_ref(s_dt, x_dt)
+            y, y_ref = tsm.spmv(s_dt, x_dt), ksl.slab_stream_spmv_ref(s_dt, x_dt)
             check(y.dtype == y_ref.dtype, f"{label}: dtype {y.dtype} vs {y_ref.dtype}")
             errs.append(compare("slab_stream_spmv", y, y_ref, TOL[dt]["y"],
                                 f"slab stream {label} {dt}"))
@@ -1950,8 +1952,7 @@ def general_phases(dev, g, times, launches, poisson_csr):
     m = (matgen.circuit_scatter(seed=SEED) * 2e-2).tocsr()
     m.sort_indices()
     n = m.shape[0]
-    kw.reset_launches()
-    ksl.reset_launches()
+    krg.reset_launches()
     report = {}
 
     def solved(label, x_, info, A_csr, b_):
@@ -2041,8 +2042,8 @@ def general_phases(dev, g, times, launches, poisson_csr):
     check(isinstance(st2, tsm.SlabStream) and torch.equal(tsm.spmv(st2, xf), yf),
           "the reloaded SlabStream's spmv differs")
     torch.cuda.synchronize()
-    launches["well_spmv"] = kw.LAUNCHES["well_spmv"]
-    launches["slab_stream_spmv"] = ksl.LAUNCHES["slab_stream_spmv"]
+    launches["well_spmv"] = krg.LAUNCHES["well_spmv"]
+    launches["slab_stream_spmv"] = krg.LAUNCHES["slab_stream_spmv"]
     for name in ("well_spmv", "slab_stream_spmv"):
         check(launches[name] > 0, f"the general path launched {name} no time")
 
@@ -2057,10 +2058,10 @@ def general_phases(dev, g, times, launches, poisson_csr):
     full = {}
     for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         w_dt, s_dt = well.astype(dt), st.astype(dt)
-        full[f"well {dt}"] = compare("well_spmv", kw.well_spmv(w_dt, x.to(dt)),
+        full[f"well {dt}"] = compare("well_spmv", tsm.spmv(w_dt, x.to(dt)),
                                      kw.well_spmv_ref(w_dt, x.to(dt)), tol, f"circuit WELL {dt}")
         full[f"slab stream {dt}"] = compare(
-            "slab_stream_spmv", ksl.slab_stream_spmv(s_dt, xf.to(dt)),
+            "slab_stream_spmv", tsm.spmv(s_dt, xf.to(dt)),
             ksl.slab_stream_spmv_ref(s_dt, xf.to(dt)), tol, f"fem SlabStream {dt}")
         del w_dt, s_dt
     say("23 general path", f"circuit_scatter·2e-2: {n} rows, {csr.n_non_zero_entries()} "
@@ -2096,13 +2097,13 @@ def general_phases(dev, g, times, launches, poisson_csr):
 
     # 24 -----------------------------------------------------------------------
     for name, mat, plan, xv, A_csr, kern, plain in (
-            ("well_spmv", well, wplan, x, csr, kw.well_spmv, kw.well_spmv_ref),
-            ("slab_stream_spmv", st, splan, xf, fcsr, ksl.slab_stream_spmv,
+            ("well_spmv", well, wplan, x, csr, tsm.spmv, kw.well_spmv_ref),
+            ("slab_stream_spmv", st, splan, xf, fcsr, tsm.spmv,
              ksl.slab_stream_spmv_ref)):
         nnz_ = A_csr.n_non_zero_entries()
         k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: kern(mat, xv), lambda: plain(mat, xv), 20)
         d_ms = device_us(lambda: kern(mat, xv), 20, "rowgroup_spmv_kernel",
-                         lambda: {**kw.LAUNCHES, **ksl.LAUNCHES}[name]) / 1e3
+                         lambda: krg.LAUNCHES[name]) / 1e3
         A_lib = torch_csr(A_csr)
         lib = library_ms(lambda: torch.mv(A_lib, xv), 20)
         del A_lib
@@ -2132,10 +2133,10 @@ def general_phases(dev, g, times, launches, poisson_csr):
         f"iters/s runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
         f"runs {[runs[0], runs[3]]}")
     per_w = note_steps(times, "well_spmv", per_step(
-        lambda: kw.LAUNCHES, lambda j: solvers.bicgstab(well, b, tol=0.0, maxiter=j), 32,
+        lambda: krg.LAUNCHES, lambda j: solvers.bicgstab(well, b, tol=0.0, maxiter=j), 32,
         well)["well_spmv"], "BiCGStab iteration, circuit WELL")
     per_s = note_steps(times, "slab_stream_spmv", per_step(
-        lambda: ksl.LAUNCHES, lambda j: solvers.cg(st, bf, tol=0.0, maxiter=j, M=Mj), 32,
+        lambda: krg.LAUNCHES, lambda j: solvers.cg(st, bf, tol=0.0, maxiter=j, M=Mj), 32,
         st)["slab_stream_spmv"], "PCG(Jacobi) iteration, FEM SlabStream")
     say("24 times", "host seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in host.items())
         + f"; launches per iteration: well_spmv per BiCGStab {per_w}, slab_stream_spmv per "
@@ -2397,7 +2398,7 @@ def block_matvec(d):
 
 
 def reset_all_launches():
-    for module in (kd, ks, kr, ksp, ksl, kw, pdist):
+    for module in (kd, krg, pdist):
         module.reset_launches()
 
 
@@ -2555,7 +2556,7 @@ def dist_phases(dev, g, times, launches, csr, dia, b, x_cg):
     dS = dists["DistSlab"]
     xs_ext = x_ext(dS, xf)
     cases.append(("dist_slab_spmv", "DistSlab FEM", dS, xs_ext,
-                  lambda: ksl.slab_spmv(dS.shard, xs_ext, pdist.LAUNCHES, "dist_slab_spmv"),
+                  lambda: tmv.planned_spmv(dS.shard, xs_ext, pdist.LAUNCHES, "dist_slab_spmv"),
                   lambda: ksl.slab_spmv_ref(dS.shard, xs_ext),
                   lambda: torch.mv(fem_t, xf), "rowgroup_spmv_kernel",
                   lambda: pdist.LAUNCHES["dist_slab_spmv"]))

@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 import chip_smoke as cs
-from sparsemat_tpu_torch import solvers
+from sparsemat_tpu_torch import solvers, spmv
 from sparsemat_tpu_torch.kernels import _rowgroup as krg
 from sparsemat_tpu_torch.kernels import strip as ks
 
@@ -67,8 +67,8 @@ def main():
     torch.cuda.synchronize()
     print(f"plain strip PCG {64 / (time.perf_counter() - t0):.1f} iters/s", flush=True)
     stage("D after the plain PCG", st, ss, b, M)
-    cs.device_us(lambda: ks.strip_spmv(st, x), 20, "rowgroup_spmv_kernel",
-                 lambda: ks.LAUNCHES["strip_spmv"])
+    cs.device_us(lambda: spmv(st, x), 20, "rowgroup_spmv_kernel",
+                 lambda: krg.LAUNCHES["strip_spmv"])
     stage("E after a profiler trace", st, ss, b, M)
     gc.collect()
     stage("F after gc.collect", st, ss, b, M)

@@ -1,6 +1,5 @@
-"""Helpers shared by the kernel wrappers: the fill-mode gather of the plain
-versions, the check of a kernel's operand, and the plain SpMM of the plan
-formats that have none of their own."""
+"""Helpers shared by the kernels' callers: the fill-mode gather of the plain
+versions and the check of a kernel's operand."""
 
 from __future__ import annotations
 
@@ -30,13 +29,3 @@ def check_operand(X: torch.Tensor, dev: torch.device, shape, kind: str, want: tu
     if tuple(X.shape) != want:
         raise ValueError(f"{kind}: operand of shape {tuple(X.shape)} for a {tuple(shape)} "
                          f"matrix")
-
-
-def spmm_through_csr(mat, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B by the dispatch's CSR SpMM (the ELL gather or the
-    column-tiled stream) of ``mat.to_csr()``, a conversion counted in
-    ``ops.conversions``: the plain SpMM of StripELL, WELL, SlabStream and
-    RouteStream, which the JAX package also computes through CSR."""
-    from ..ops import matvec            # the dispatch imports the kernel modules
-
-    return matvec._spmm(matvec._to(mat, "csr"), B, None)

@@ -36,20 +36,30 @@ row-group SpMM, at groups of one row.
 
 The plan lives beside the format (the frozen layouts stay bit-equal to
 the JAX freezes); its code is plain torch on any device, so the CPU tests
-build and walk it.
+build and walk it.  Which formats run their products over a plan, and
+under which counter key, is ``ops/matvec.py``'s table ``PLANNED``; every
+launch over a plan is counted here, in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from .._build import load_cuda
 from ..formats.bsr import BSR
 from ..formats.route import RouteStream
-from ..types import accum_dtype
+from ..types import FLOAT_DTYPES, accum_dtype
 from ..utils import profiling
+
+#: kernel launches over a plan, by the product's key (the plain versions do
+#: not count): one per product, any number of parts or overflow levels
+LAUNCHES = profiling.register("kernels.plan", {
+    "strip_spmv": 0, "strip_spmm": 0, "well_spmv": 0, "well_spmm": 0, "slab_spmv": 0,
+    "slab_spmm": 0, "slab_stream_spmv": 0, "slab_stream_spmm": 0, "route_spmv": 0,
+    "route_spmm": 0, "bsr_spmm": 0})
 
 #: the largest row group (the kernels' mask is 8 bits)
 MAX_GROUP = 8
@@ -70,6 +80,11 @@ MERGE_ITEMS = 1536
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _libs = {}
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _bind(name: str, fn_prefix: str, argtypes) -> ctypes.CDLL:
@@ -371,20 +386,47 @@ def bsr_entries(bsr: BSR):
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
-def plan_of(mat, check=None) -> Plan:
+def _tensors(obj):
+    """Every tensor reachable through a format's dataclass fields, its
+    parts' and overflow levels' included."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for item in obj:
+            yield from _tensors(item)
+
+
+def _check_layout(mat) -> None:
+    """Every array of the matrix on its values' device, and float values:
+    checked once per matrix, when its plan is built.  A launch also needs
+    its operand on that device (``_common.check_operand``), and takes the
+    plain version where both lie on the CPU, so every launch finds the
+    matrix on one CUDA device."""
+    dev = mat.device
+    if any(t.device != dev for t in _tensors(mat)):
+        raise ValueError(f"{type(mat).__name__} kernels: the kernels need every array on "
+                         f"one CUDA device, the values are on {dev}")
+    if mat.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{type(mat).__name__} kernels: the CUDA kernels take float values, "
+                        f"got {mat.dtype}")
+
+
+def plan_of(mat) -> Plan:
     """The plan of a BSR, WELL, SlabELL, SlabPack (every part and every
     overflow level in one), StripELL (every class part), SlabStream or
     RouteStream (at G = 1: its CSR), shared by its SpMV and its SpMM (on a
     card, every product of these formats but a BSR's SpMV): built on
     the matrix's device at first use (a BSR's entries from its blocks, the
-    others' from ``to_coo``), after ``check(mat)`` where one is given, and
-    cached on it (a frozen matrix's layout and values never change).  A
-    build is the set-up span ``freeze.plan``."""
+    others' from ``to_coo``), after ``_check_layout``, and cached on it (a
+    frozen matrix's layout and values never change).  A build is the
+    set-up span ``freeze.plan``."""
     plan = mat.__dict__.get("_rowgroup_plan")
     if plan is None:
         with profiling.span("freeze.plan", setup=True):
-            if check is not None:
-                check(mat)
+            _check_layout(mat)
             if isinstance(mat, BSR):
                 entries = bsr_entries(mat)
             else:
@@ -399,7 +441,7 @@ def plan_of(mat, check=None) -> Plan:
 def walk(plan: Plan, B: torch.Tensor) -> torch.Tensor:
     """Y = A @ B by the SpMM kernel's arithmetic in its order, in plain
     torch: each row's terms summed over its group's union columns in
-    order, a masked-off term skipped.  For the tests (the wrappers' plain
+    order, a masked-off term skipped.  For the tests (the products' plain
     versions are the formats' own)."""
     adt = accum_dtype(torch.promote_types(plan.vals.dtype, B.dtype))
     G, m = plan.group, B.shape[1]

@@ -1,5 +1,5 @@
-"""RouteStream SpMV and SpMM: the CUDA kernels' wrappers, the SpMV's plain
-versions and the launch counter (counterpart of
+"""RouteStream SpMV: the merge-path CUDA kernel's binding, the plain
+versions and the kernel's walk (counterpart of
 ``sparsemat_tpu/kernels/route.py``).
 
 The TPU's SpMV is two kernels over the freeze's routing tables (gather into
@@ -10,10 +10,10 @@ what bounds it) over the matrix's compact plan at G = 1
 dropped, built on the matrix's device at first use and cached on it), cut
 into nnz-balanced tiles by ``_rowgroup.MergeSplit`` (built once per plan).
 The routing tables stay in the format, bit-equal to the JAX freeze, and the
-kernel reads none of them.  The SpMM launches ``rowgroup_spmm_kernel``
-(``csrc/spmm.cu``) over the same G = 1 plan, one launch per product; its
-plain version is the JAX package's path through CSR
-(``_common.spmm_through_csr``).
+kernel reads none of them.  ``ops/matvec.py`` launches it on CUDA tensors
+and takes ``route_spmv_ref`` on CPU tensors; the SpMM is the row-group
+SpMM over the same G = 1 plan, and its plain version the JAX package's
+path through CSR.
 
 The plain versions replay the JAX package's table semantics
 (``route_spmv_xla``) in two halves, ``route_gather_ref`` and
@@ -22,13 +22,11 @@ regions where the JAX package scans, so the kernel and its plain version
 are independent.  ``route_spmv_walk`` is the kernel's arithmetic in its
 order, in plain torch, for the tests.
 
-Dtypes: the values and x or B are computed in the accumulation dtype of the
-two (bf16/f16 in f32); the kernels run in f32 or f64.  One difference from
-the plain versions: the kernels read no padding slot, so where x or B holds
-inf or NaN they give what a CSR product gives (scipy, ``torch.mv``,
-``torch.sparse.mm``), not a slot's 0·inf = NaN; for a finite operand they
-agree.  A wrapper takes its plain version only when its tensors lie on the
-CPU; on a CUDA tensor it launches its kernel or raises.
+Dtypes: the values and x are computed in the accumulation dtype of the two
+(bf16/f16 in f32); the kernel runs in f32 or f64.  One difference from the
+plain versions: the kernel reads no padding slot, so where x holds inf or
+NaN it gives what a CSR product gives (scipy, ``torch.mv``), not a slot's
+0·inf = NaN; for a finite operand they agree.
 """
 
 from __future__ import annotations
@@ -39,23 +37,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..formats.route import ARRAYS, LANE, REG_ROWS, SUP_ROWS, RouteStream
-from ..types import FLOAT_DTYPES, accum_dtype
-from ..utils import profiling
+from ..formats.route import LANE, REG_ROWS, SUP_ROWS, RouteStream
+from ..types import accum_dtype
 from .._build import load_cuda
 from . import _rowgroup
-from ._common import check_operand, spmm_through_csr
-
-#: kernel launches (the plain versions do not count)
-LAUNCHES = profiling.register("kernels.route", {"route_spmv": 0, "route_spmm": 0})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _kernels() -> ctypes.CDLL:
@@ -180,27 +168,13 @@ def window_rows(rs: RouteStream) -> np.ndarray:
     return np.stack([lo, hi]).astype(np.int32)
 
 
-# --- the kernels -----------------------------------------------------------------
-
-def _check_layout(rs: RouteStream) -> None:
-    """The arrays the plan is built from on one CUDA device, and float
-    values: checked once per matrix, when its plan is built."""
-    dev = rs.a_vals.device
-    if dev.type != "cuda" or any(getattr(rs, k).device != dev for k in ARRAYS):
-        raise ValueError(f"route kernels: the kernels need every array on one CUDA device, "
-                         f"got {dev}")
-    if rs.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"route kernels: the CUDA kernels take float values, got {rs.dtype}")
-
-
-def _on_cpu(rs: RouteStream, X: torch.Tensor) -> bool:
-    return rs.a_vals.device.type == "cpu" and X.device.type == "cpu"
-
+# --- the kernel ------------------------------------------------------------------
 
 def launch(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through ``route_spmv_kernel`` over ``split`` of the G = 1
-    ``plan``, one launch (counted in ``LAUNCHES``); x (n_cols,) on the
-    plan's CUDA device.  bf16/f16 values and x are computed in f32."""
+    ``plan``, one launch (counted in ``_rowgroup.LAUNCHES["route_spmv"]``);
+    x (n_cols,) on the plan's CUDA device.  bf16/f16 values and x are
+    computed in f32."""
     n_rows = plan.shape[0]
     adt = accum_dtype(torch.promote_types(plan.vals.dtype, x.dtype))
     vals = plan.vals_as(adt)
@@ -221,31 +195,8 @@ def launch(plan: _rowgroup.Plan, split: _rowgroup.MergeSplit, x: torch.Tensor) -
     if rc != 0:
         raise RuntimeError(f"route_spmv: CUDA error {rc} "
                            f"({lib.smt_route_error_string(rc).decode()})")
-    LAUNCHES["route_spmv"] += 1
+    _rowgroup.LAUNCHES["route_spmv"] += 1
     return y
-
-
-def route_spmv(rs: RouteStream, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x.  CUDA: one launch of ``route_spmv_kernel`` over the
-    matrix's G = 1 plan and its merge split; CPU: the plain version."""
-    if _on_cpu(rs, x):
-        return route_spmv_ref(rs, x)
-    check_operand(x, rs.a_vals.device, rs.shape, "route_spmv", (rs.shape[1],))
-    plan = _rowgroup.plan_of(rs, _check_layout)
-    return launch(plan, plan.merge, x)
-
-
-def route_spmm(rs: RouteStream, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B for B (n_cols, m).  CUDA: one launch of
-    ``rowgroup_spmm_kernel`` over the G = 1 plan the SpMV walks; CPU: the
-    plain path through CSR, a conversion a call.  The kernel skips the terms
-    with no stored entry, which the padded layout's plain SpMV computes as
-    0·inf: for a B holding inf or NaN it gives what a CSR SpMM gives, as the
-    plain path does."""
-    if _on_cpu(rs, B):
-        return spmm_through_csr(rs, B)
-    check_operand(B, rs.a_vals.device, rs.shape, "route_spmm", (rs.shape[1], B.shape[-1]))
-    return _rowgroup.launch(_rowgroup.plan_of(rs, _check_layout), B, LAUNCHES, "route_spmm")
 
 
 # --- the kernel's order, in plain torch (for the tests) -----------------------------

@@ -1,27 +1,28 @@
 """SpMV, its fused forms, SpMM and Aᵀy (counterpart of
 ``sparsemat_tpu/ops/matvec.py``).
 
-Dispatch by format, in the JAX package's order: DIA goes to the DIA kernels
-(``kernels/dia.py``), RouteStream to the merge-path SpMV over its G = 1
-plan (``kernels/route.py``); StripELL (``kernels/strip.py``), SlabStream, SlabPack
-and SlabELL (``kernels/slab.py``) and WELL (and any matrix under
-``method='pallas'``, ``kernels/well.py``) to the row-group SpMV over the
-matrix's compact plan (``kernels/_rowgroup.py``), and, for SpMM, BSR
-(``kernels/spmm.py``), SlabPack, SlabELL, StripELL, WELL, SlabStream and
-RouteStream to the row-group SpMM over the same plan; each wrapper launches
-on CUDA tensors and takes its plain version on CPU tensors (for the SpMM of
-the last four, the JAX package's path through CSR).  GELL takes one
-ELL gather sweep per level, joined by gathers through its inverse row maps;
-ELL takes dense gather sweeps; CSR and COO (and SELL, through COO for SpMV
-and CSR for SpMM) take the stream path: gather by column, multiply, and
-reduce each row's segment in order.  The segmented reduction has no atomics
-(a scatter-add with ``index_add_`` would use them on CUDA), so reruns are
+Dispatch by format, in the JAX package's order.  DIA goes to the DIA
+kernels (``kernels/dia.py``).  The planned formats (``PLANNED``: StripELL,
+WELL, SlabELL, SlabPack, SlabStream, RouteStream, and BSR for its SpMM) run
+each product on a card as one launch over the matrix's compact row-group
+plan (``kernels/_rowgroup.py``): the row-group SpMV or SpMM, or for a
+RouteStream's SpMV the merge-path kernel (``kernels/route.py``).  On CPU
+tensors each takes its plain version, which the table names (for the SpMM
+of StripELL, WELL, SlabStream and RouteStream, the JAX package's path
+through CSR; for a BSR's SpMV, COO).  GELL takes one ELL gather sweep per
+level, joined by gathers through its inverse row maps; ELL takes dense
+gather sweeps; CSR and COO (and SELL, through COO for SpMV and CSR for
+SpMM) take the stream path: gather by column, multiply, and reduce each
+row's segment in order.  The segmented reduction has no atomics (a
+scatter-add with ``index_add_`` would use them on CUDA), so reruns are
 bitwise equal.
 ``rmatvec`` reduces by column the same way, over a column order of the
 entries built once per matrix.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -36,18 +37,51 @@ from ..formats.route import RouteStream
 from ..formats.slab import SlabELL, SlabPack, SlabStream
 from ..formats.strip import StripELL
 from ..formats.well import WELL
+from ..kernels import _rowgroup
 from ..kernels import dia as dia_kernels
 from ..kernels import route as route_kernels
-from ..kernels import slab as slab_kernels
-from ..kernels import spmm as spmm_kernels
-from ..kernels import strip as strip_kernels
-from ..kernels import well as well_kernels
+from ..kernels._common import check_operand
+from ..kernels.route import route_spmv_ref
+from ..kernels.slab import (slab_pack_spmm_ref, slab_pack_spmv_ref, slab_spmm_ref,
+                            slab_spmv_ref, slab_stream_spmv_ref)
+from ..kernels.spmm import bsr_spmm_ref
+from ..kernels.strip import strip_spmv_ref
+from ..kernels.well import well_spmv_ref
 from ..types import accum_dtype
 from ..utils import profiling
 
-_SPMV_METHODS = (None, "pallas", "dia", "dia_xla", "strip", "route", "slab_stream",
-                 "slab_pack", "slab", "well", "gell", "ell")
-_SPMM_METHODS = (None, "pallas", "bsr", "dia", "slab_pack", "slab", "gell", "ell")
+
+class Planned(NamedTuple):
+    """How a planned format's products run: on CUDA tensors one launch over
+    the matrix's plan, counted in ``_rowgroup.LAUNCHES`` under its key; on
+    CPU tensors its plain version."""
+    spmv: Optional[Callable]     # the plain SpMV; None: the SpMV goes through COO
+    spmm: Optional[Callable]     # the plain SpMM; None: through CSR
+    spmv_key: Optional[str]
+    spmm_key: str
+    merge: bool = False          # the SpMV launches the merge-path route_spmv_kernel
+
+
+#: the planned formats, by class (a SlabPack counts under the SlabELL's keys)
+PLANNED = {
+    StripELL: Planned(strip_spmv_ref, None, "strip_spmv", "strip_spmm"),
+    WELL: Planned(well_spmv_ref, None, "well_spmv", "well_spmm"),
+    SlabELL: Planned(slab_spmv_ref, slab_spmm_ref, "slab_spmv", "slab_spmm"),
+    SlabPack: Planned(slab_pack_spmv_ref, slab_pack_spmm_ref, "slab_spmv", "slab_spmm"),
+    SlabStream: Planned(slab_stream_spmv_ref, None, "slab_stream_spmv", "slab_stream_spmm"),
+    RouteStream: Planned(route_spmv_ref, None, "route_spmv", "route_spmm", merge=True),
+    BSR: Planned(None, bsr_spmm_ref, None, "bsr_spmm"),
+}
+
+#: the formats ``method=`` names, in the order the dispatch tries them (after
+#: ``pallas`` and DIA, and for SpMM BSR): a matrix whose own format comes
+#: first keeps it, any other is frozen to the method's
+_SPMV_FORMATS = {"strip": StripELL, "route": RouteStream, "slab_stream": SlabStream,
+                 "slab_pack": SlabPack, "slab": SlabELL, "well": WELL, "gell": GELL,
+                 "ell": ELL}
+_SPMM_FORMATS = {"slab_pack": SlabPack, "slab": SlabELL, "gell": GELL, "ell": ELL}
+_SPMV_METHODS = (None, "pallas", "dia", "dia_xla", *_SPMV_FORMATS)
+_SPMM_METHODS = (None, "pallas", "bsr", "dia", *_SPMM_FORMATS)
 #: cap on the materialised (nnz, tile) gather of the stream SpMM, and on the
 #: (n_rows, K, m) gather the CSR branch allows the ELL path (the JAX
 #: package's 512 MB)
@@ -70,6 +104,48 @@ def _to(mat, fmt: str):
     time: counted by target in ``ops.conversions`` while tracing is on."""
     profiling.count(profiling.CONVERSIONS, fmt)
     return getattr(mat, f"to_{fmt}")()
+
+
+def _by_method(mat, method, formats: dict):
+    """``mat`` as the branch of ``method`` takes it: frozen to the method's
+    format unless the matrix's own format comes first in ``formats``."""
+    for name, cls in formats.items():
+        if isinstance(mat, cls):
+            return mat
+        if name == method:
+            return _to(mat, name)
+    return mat
+
+
+# --- the planned formats -----------------------------------------------------
+
+def planned_spmv(mat, x, launches: Optional[dict] = None,
+                 name: Optional[str] = None) -> torch.Tensor:
+    """y = A @ x over a planned format.  CUDA: one launch over its plan,
+    counted in ``launches[name]``, by default ``_rowgroup.LAUNCHES`` under
+    the format's key (the merge-path launch always there); CPU: its plain
+    version."""
+    entry = PLANNED[type(mat)]
+    if mat.device.type == "cpu" and x.device.type == "cpu":
+        return entry.spmv(mat, x)
+    name = name or entry.spmv_key
+    check_operand(x, mat.device, mat.shape, name, (mat.shape[1],))
+    plan = _rowgroup.plan_of(mat)
+    if entry.merge:
+        return route_kernels.launch(plan, plan.merge, x)
+    return _rowgroup.launch_spmv(plan, x, launches or _rowgroup.LAUNCHES, name)
+
+
+def _planned_spmm(mat, B, entry: Planned) -> torch.Tensor:
+    """Y = A @ B over a planned format.  CUDA: one launch of the row-group
+    SpMM over its plan; CPU: its plain version, or the CSR path (a
+    conversion a call)."""
+    if mat.device.type == "cpu" and B.device.type == "cpu":
+        if entry.spmm is None:
+            return _spmm(_to(mat, "csr"), B, None)
+        return entry.spmm(mat, B)
+    check_operand(B, mat.device, mat.shape, entry.spmm_key, (mat.shape[1], B.shape[1]))
+    return _rowgroup.launch(_rowgroup.plan_of(mat), B, _rowgroup.LAUNCHES, entry.spmm_key)
 
 
 # --- CSR / COO stream path ---------------------------------------------------
@@ -167,34 +243,21 @@ def _spmv(mat, x, method):
     if method not in _SPMV_METHODS:
         _unknown("spmv", method)
     if method == "pallas":
-        return well_kernels.well_spmv(mat if isinstance(mat, WELL) else _to(mat, "well"), x)
+        return planned_spmv(mat if isinstance(mat, WELL) else _to(mat, "well"), x)
     if isinstance(mat, DIA) or method in ("dia", "dia_xla"):
         dia = mat if isinstance(mat, DIA) else _to(mat, "dia")
         if method == "dia_xla":
             return dia_spmv_plain(dia, x)
         return dia_kernels.dia_spmv(dia, x)
-    if isinstance(mat, StripELL) or method == "strip":
-        st = mat if isinstance(mat, StripELL) else _to(mat, "strip")
-        return strip_kernels.strip_spmv(st, x)
-    if isinstance(mat, RouteStream) or method == "route":
-        rs = mat if isinstance(mat, RouteStream) else _to(mat, "route")
-        return route_kernels.route_spmv(rs, x)
-    if isinstance(mat, SlabStream) or method == "slab_stream":
-        st = mat if isinstance(mat, SlabStream) else _to(mat, "slab_stream")
-        return slab_kernels.slab_stream_spmv(st, x)
-    if isinstance(mat, SlabPack) or method == "slab_pack":
-        pk = mat if isinstance(mat, SlabPack) else _to(mat, "slab_pack")
-        return slab_kernels.slab_pack_spmv(pk, x)
-    if isinstance(mat, SlabELL) or method == "slab":
-        sl = mat if isinstance(mat, SlabELL) else _to(mat, "slab")
-        return slab_kernels.slab_spmv(sl, x)
-    if isinstance(mat, WELL) or method == "well":
-        well = mat if isinstance(mat, WELL) else _to(mat, "well")
-        return well_kernels.well_spmv(well, x)
-    if isinstance(mat, GELL) or method == "gell":
-        return _gell_spmv(mat if isinstance(mat, GELL) else _to(mat, "gell"), x)
-    if isinstance(mat, ELL) or method == "ell":
-        return _ell_spmv(mat if isinstance(mat, ELL) else _to(mat, "ell"), x)
+    if method is not None:
+        mat = _by_method(mat, method, _SPMV_FORMATS)
+    entry = PLANNED.get(type(mat))
+    if entry is not None and entry.spmv is not None:
+        return planned_spmv(mat, x)
+    if isinstance(mat, GELL):
+        return _gell_spmv(mat, x)
+    if isinstance(mat, ELL):
+        return _ell_spmv(mat, x)
     if isinstance(mat, CSR):
         return _stream_spmv(mat.indptr, mat.indices, mat.data, x)
     # COO, and any other format (BSR, SELL) through COO, as in the JAX package
@@ -256,19 +319,19 @@ def _spmm(mat, B, method):
     if isinstance(mat, BSR) or method in ("pallas", "bsr"):
         if not isinstance(mat, BSR):
             profiling.count(profiling.CONVERSIONS, "bsr")
-        return spmm_kernels.spmm_pallas(mat, B)
+            mat = BSR.from_csr(mat.to_csr())
+        return _planned_spmm(mat, B, PLANNED[BSR])
     if isinstance(mat, DIA) or method == "dia":
         return dia_spmm(mat if isinstance(mat, DIA) else _to(mat, "dia"), B)
-    if isinstance(mat, SlabPack) or method == "slab_pack":
-        pk = mat if isinstance(mat, SlabPack) else _to(mat, "slab_pack")
-        return slab_kernels.slab_pack_spmm(pk, B)
-    if isinstance(mat, SlabELL) or method == "slab":
-        sl = mat if isinstance(mat, SlabELL) else _to(mat, "slab")
-        return slab_kernels.slab_spmm(sl, B)
-    if isinstance(mat, GELL) or method == "gell":
-        return _gell_spmm(mat if isinstance(mat, GELL) else _to(mat, "gell"), B)
-    if isinstance(mat, ELL) or method == "ell":
-        return _ell_spmm(mat if isinstance(mat, ELL) else _to(mat, "ell"), B)
+    if method is not None:
+        mat = _by_method(mat, method, _SPMM_FORMATS)
+    entry = PLANNED.get(type(mat))
+    if entry is not None:
+        return _planned_spmm(mat, B, entry)
+    if isinstance(mat, GELL):
+        return _gell_spmm(mat, B)
+    if isinstance(mat, ELL):
+        return _ell_spmm(mat, B)
     if isinstance(mat, CSR):
         # the ELL gather where its padding is small and (n_rows, K, m) fits
         # the budget, else the column-tiled stream
@@ -281,16 +344,8 @@ def _spmm(mat, B, method):
     if isinstance(mat, COO):
         coo = mat.sort()
         return _stream_spmm_tiled(coo.indptr(), coo.cols, coo.vals, B)
-    if isinstance(mat, StripELL):
-        return strip_kernels.strip_spmm(mat, B)
-    if isinstance(mat, WELL):
-        return well_kernels.well_spmm(mat, B)
-    if isinstance(mat, SlabStream):
-        return slab_kernels.slab_stream_spmm(mat, B)
-    if isinstance(mat, RouteStream):
-        return route_kernels.route_spmm(mat, B)
     # any other format (SELL) through CSR, so the ELL-or-stream choice applies
-    return _spmm(_to(mat, "csr"), B, method)
+    return _spmm(_to(mat, "csr"), B, None)
 
 
 def _column_order(mat):

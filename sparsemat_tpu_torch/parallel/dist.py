@@ -21,9 +21,9 @@ The JAX package's contiguous block-row decomposition over a
   kernel over the shard's plan, whose columns are renumbered into [own x |
   hop 1 | hop 2 | ...].
 * ``DistSlab``: the scattered analogue of DistDIA's halo, in whole
-  128-column windows; the shard product is ``kernels/slab.py``
-  ``slab_spmv`` over the rank's local SlabELL, made once per matrix, so its
-  plan is built once.
+  128-column windows; the shard product is ``ops/matvec.py``
+  ``planned_spmv`` over the rank's local SlabELL, made once per matrix, so
+  its plan is built once.
 
 Each format's host partition (``partition_*``) is a pure numpy function of
 the frozen matrix and the block count that returns every block: the JAX
@@ -60,7 +60,7 @@ from ..formats.dia import DIA
 from ..formats.slab import SLAB_ROW_BLOCK, WINDOW, SlabELL
 from ..kernels import _rowgroup
 from ..kernels import dia as kd
-from ..kernels import slab as ksl
+from ..ops.matvec import planned_spmv
 from ..utils import profiling
 from .mesh import ROWS_AXIS, mesh_device
 
@@ -637,7 +637,7 @@ class DistSlab(_RowPartitioned):
     def _make_plan(self):
         if self.vals.device.type == "cpu":
             return None
-        return _rowgroup.plan_of(self.shard, ksl._check_layout)
+        return _rowgroup.plan_of(self.shard)
 
 
 def partition_slab(csr, n_blocks: int, rb: int | None = None) -> dict:
@@ -701,4 +701,4 @@ def dist_slab_spmv(mat: DistSlab, x, mesh: DeviceMesh | None = None) -> DTensor:
         x_ext = F.pad(xl, (hx, hx))
     else:
         x_ext = xl
-    return _sharded(mat, ksl.slab_spmv(mat.shard, x_ext, LAUNCHES, "dist_slab_spmv"))
+    return _sharded(mat, planned_spmv(mat.shard, x_ext, LAUNCHES, "dist_slab_spmv"))

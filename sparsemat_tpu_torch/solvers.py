@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .formats import DIA, WELL, RouteStream, SlabELL, SlabPack, SlabStream, StripELL
+from .formats import DIA
+from .ops.matvec import PLANNED
 from .types import is_float_dtype
 from .utils import profiling
 
@@ -40,10 +41,10 @@ from .utils import profiling
 SYNC_EVERY = 32
 #: the block graphs one operator keeps, the least recently used dropped first
 GRAPHS_PER_OPERATOR = 4
-#: the formats whose CUDA product (``ops/matvec.py``, no ``method``) is one
+#: the formats whose CUDA SpMV (``ops/matvec.py``, no ``method``) is one
 #: launch over a plan cached on the matrix; the others convert or sort at
 #: call time, and their loops run op by op
-_GRAPH_FORMATS = (DIA, StripELL, WELL, SlabStream, SlabELL, SlabPack, RouteStream)
+_GRAPH_FORMATS = (DIA, *(cls for cls, entry in PLANNED.items() if entry.spmv is not None))
 
 
 class SolveInfo(NamedTuple):

@@ -17,12 +17,13 @@ allocation, no ``record_function``, no clock read.  Set-up spans
 (``setup=True``: a format's freeze, a launch plan, a native build) run once
 a matrix and record into the table always.
 
-Counters are dicts of counts, one registry for the program: the kernel
-modules' ``LAUNCHES`` (registered under their module's name, counting
-every launch as before) and the counts below, which ``count`` adds to only
-while tracing is on.  ``trace_record()`` reads spans and counters;
-``reset_trace()`` clears both.  ``trace_to`` exports a profiler's Chrome
-trace.
+Counters are dicts of counts, one registry for the program: three groups
+of launch counts, which count every launch (``kernels.dia``;
+``kernels.plan``, every launch over a row-group plan, in
+``kernels/_rowgroup.py``; ``parallel.dist``, the shard products), and the
+counts below, which ``count`` adds to only while tracing is on.
+``trace_record()`` reads spans and counters; ``reset_trace()`` clears
+both.  ``trace_to`` exports a profiler's Chrome trace.
 
 Spans: ``solver.block`` (one block of ``solvers._while``'s steps, or its
 graph's replay, the host read of the condition left out), ``ops.spmv`` and ``ops.spmm`` (the
@@ -32,9 +33,9 @@ built: ``kernels/dia.py`` ``dia_spmv_plan``, ``kernels/_rowgroup.py``
 where its build is absent).  Counters: ``solver`` (``steps_executed``,
 ``steps_committed``, and of the loops run as CUDA graphs ``steps_replayed``
 and ``graph_captures``) and ``ops.conversions`` (the format conversions the
-products' dispatch makes at call time, by target format).  The kernel
-modules' ``LAUNCHES`` count host enqueues: a launch captured into a CUDA
-graph counts once, at its capture, and a replay adds none.
+products' dispatch makes at call time, by target format).  The launch
+groups count host enqueues: a launch captured into a CUDA graph counts
+once, at its capture, and a replay adds none.
 """
 
 from __future__ import annotations

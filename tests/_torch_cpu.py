@@ -31,3 +31,11 @@ class LazyModule:
 
     def __getattr__(self, attr):
         return getattr(pytest.importorskip(self._name), attr)
+
+
+def plan_launches(counts: dict) -> dict:
+    """The plan group's launch counts a test expects: ``counts``, and 0
+    under every key it does not name."""
+    from sparsemat_tpu_torch.kernels import _rowgroup
+
+    return dict.fromkeys(_rowgroup.LAUNCHES, 0) | counts

@@ -18,8 +18,10 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import spmm as ksp
 
 ARRAYS = ("blocks", "block_rows", "block_cols", "occ")
@@ -203,22 +205,22 @@ def test_bsr_spmm_low_precision_matches_xla_oracle(dtype):
 def test_zero_columns_and_no_tiles_give_zeros():
     m = MATRICES["blocky_64x256"]()
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m))
-    y = ksp.bsr_spmm(tb, torch.zeros((256, 0)))
+    y = tsm.spmm(tb, torch.zeros((256, 0)))
     assert y.shape == (64, 0)
     none = tsm.BSR(blocks=torch.zeros((0, 8, 128)), block_rows=torch.zeros(0, dtype=torch.int32),
                    block_cols=torch.zeros(0, dtype=torch.int32), occ=None, shape=(64, 256))
-    assert torch.equal(ksp.bsr_spmm(none, torch.ones((256, 3))), torch.zeros((64, 3)))
+    assert torch.equal(tsm.spmm(none, torch.ones((256, 3))), torch.zeros((64, 3)))
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(MATRICES["blocky_64x256"]()))
     B = torch.randn(256, 5)
-    ksp.reset_launches()
-    assert torch.equal(ksp.bsr_spmm(tb, B), ksp.bsr_spmm_ref(tb, B))
+    rg.reset_launches()
+    assert torch.equal(tb @ B, ksp.bsr_spmm_ref(tb, B))
     assert torch.equal(tsm.spmm(tb, B), ksp.bsr_spmm_ref(tb, B))
-    assert ksp.LAUNCHES == {"bsr_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"bsr_spmm": 0})
     with pytest.raises(ValueError):
-        ksp.bsr_spmm(tb, torch.randn(255, 5))
+        tsm.spmm(tb, torch.randn(255, 5))
 
 
 # -- canonical views and structure -----------------------------------------------------
@@ -276,14 +278,14 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, block, m_rhs):
                           bc=block[1]).astype(dtype)
     B = torch.randn(m.shape[1], m_rhs, device=cuda)
     B = B.to(dtype) if dtype != torch.bfloat16 else B
-    ksp.reset_launches()
-    y = ksp.bsr_spmm(tb, B)
+    rg.reset_launches()
+    y = tsm.spmm(tb, B)
     y_ref = ksp.bsr_spmm_ref(tb, B)
     torch.cuda.synchronize()
-    assert ksp.LAUNCHES == {"bsr_spmm": 1}
+    assert rg.LAUNCHES == plan_launches({"bsr_spmm": 1})
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0], m_rhs)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
-    assert torch.equal(ksp.bsr_spmm(tb, B), y)          # reruns bitwise
+    assert torch.equal(tsm.spmm(tb, B), y)          # reruns bitwise
 
 
 def power_law_row(n=3000, seed=7):
@@ -300,10 +302,10 @@ def test_cuda_kernel_walks_a_long_power_law_row(cuda, dtype):
     m = power_law_row()
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda)).astype(dtype)
     B = torch.randn(m.shape[1], 40, device=cuda, dtype=dtype)
-    y = ksp.bsr_spmm(tb, B)
+    y = tsm.spmm(tb, B)
     assert rel_err(y.cpu(), ksp.bsr_spmm_ref(tb, B).cpu()) < TOL[dtype]
     assert rel_err(y.cpu(), m.astype(np.float64) @ B.double().cpu().numpy()) < TOL[dtype]
-    assert torch.equal(ksp.bsr_spmm(tb, B), y)
+    assert torch.equal(tsm.spmm(tb, B), y)
 
 
 @pytest.mark.cuda
@@ -314,7 +316,7 @@ def test_cuda_kernel_takes_an_unaligned_b(cuda, dtype):
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda)).astype(dtype)
     B = torch.randn(300 * 128 + 1, device=cuda, dtype=dtype)[1:].view(300, 128)
     assert B.is_contiguous() and B.data_ptr() % 16
-    assert rel_err(ksp.bsr_spmm(tb, B).cpu(), ksp.bsr_spmm_ref(tb, B).cpu()) < TOL[dtype]
+    assert rel_err(tsm.spmm(tb, B).cpu(), ksp.bsr_spmm_ref(tb, B).cpu()) < TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -335,7 +337,7 @@ def test_cuda_kernel_gives_a_csr_spmm_answer_on_non_finite_b(cuda):
     assert np.isnan(want[r0, 0]) and not np.isnan(want[:, 1]).any()
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(m, device=cuda))
     Bt = torch.from_numpy(B).to(cuda)
-    got = ksp.bsr_spmm(tb, Bt).cpu().numpy()
+    got = tsm.spmm(tb, Bt).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
     assert torch.isnan(ksp.bsr_spmm_ref(tb, Bt)[:, 1]).any()
 
@@ -348,13 +350,13 @@ def test_cuda_device_freeze_matches_host_freeze(cuda):
         host, dev = tsm.BSR.from_csr(csr, br=br), tsm.BSR.from_csr_device(csr, br=br)
         assert torch.equal(host.blocks, dev.blocks)
         B = torch.randn(520, 17, device=cuda)
-        assert torch.equal(ksp.bsr_spmm(host, B), ksp.bsr_spmm(dev, B))
+        assert torch.equal(tsm.spmm(host, B), tsm.spmm(dev, B))
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     tb = tsm.BSR.from_csr(tsm.CSR.from_scipy(MATRICES["blocky_64x256"](), device=cuda))
     with pytest.raises(ValueError):
-        ksp.bsr_spmm(tb, torch.zeros(256, 4))                    # B on the CPU
+        tsm.spmm(tb, torch.zeros(256, 4))                    # B on the CPU
     with pytest.raises(TypeError):
-        ksp.bsr_spmm(tb, torch.zeros(256, 4, dtype=torch.int32, device=cuda))
+        tsm.spmm(tb, torch.zeros(256, 4, dtype=torch.int32, device=cuda))

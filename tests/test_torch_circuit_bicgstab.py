@@ -27,7 +27,7 @@ import torch
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import matgen, solvers
-from sparsemat_tpu_torch.kernels import route as kr
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 
 N = 3000
 SEEDS = [0, 2**31 + 3]
@@ -186,7 +186,7 @@ def test_cuda_route_kernel_solve_against_reference(cuda, seed):
     b = rhs(seed, n, torch.float32).to(cuda)
     (x, k, _), (xr, _, _) = both(m, b, None, rtol=0.0, maxiter=8, device=cuda)
     assert k == 8 and rel(x, xr) < 1e-5
-    kr.reset_launches()
+    rg.reset_launches()
     port, ref = both(m, b, None, rtol=1e-5, maxiter=2000, device=cuda)
     for x, k, ok in (ref, port):
         assert ok and true_residual(m, x, b) < 2e-5
@@ -194,4 +194,4 @@ def test_cuda_route_kernel_solve_against_reference(cuda, seed):
     # enqueues them: over the first block, run op by op, and over the block
     # captured into the loop's CUDA graph (a replay enqueues none)
     blocks = -(-k // solvers.SYNC_EVERY)
-    assert kr.LAUNCHES["route_spmv"] == 1 + 2 * solvers.SYNC_EVERY * min(blocks, 2)
+    assert rg.LAUNCHES["route_spmv"] == 1 + 2 * solvers.SYNC_EVERY * min(blocks, 2)

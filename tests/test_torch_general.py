@@ -26,6 +26,7 @@ from _torch_cpu import port_on_cpu, real_default_device  # noqa: F401  (autouse)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import _build, checkpoint, interop, native, types
 from sparsemat_tpu_torch import io as tio
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.ops import matvec as tmv
 
 PORT_DIR = os.path.dirname(os.path.abspath(tsm.__file__))
@@ -535,20 +536,16 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_general_path_goes_through_the_kernels(cuda):
-    from sparsemat_tpu_torch.kernels import slab as ksl
-    from sparsemat_tpu_torch.kernels import well as kw
-
     m = mixed_degree(1100, 22)
     csr = tsm.CSR.from_scipy(m, device=cuda)
     x = torch.randn(1100, device=cuda)
     want = torch.from_numpy(m.astype(np.float64) @ x.double().cpu().numpy())
-    kw.reset_launches()
-    ksl.reset_launches()
+    rg.reset_launches()
     for method in ("pallas", "well", "slab_stream", "gell", "dia", "dia_xla"):
         assert rel_err(tsm.spmv(csr, x, method=method).cpu(), want) < 1e-5, method
     assert torch.equal(tsm.spmv(csr, x, method="pallas"), tsm.spmv(csr.to_well(), x))
     torch.cuda.synchronize()
-    assert kw.LAUNCHES["well_spmv"] == 4 and ksl.LAUNCHES["slab_stream_spmv"] == 1
+    assert rg.LAUNCHES["well_spmv"] == 4 and rg.LAUNCHES["slab_stream_spmv"] == 1
     y = torch.randn(1100, device=cuda)
     r = tsm.rmatvec(csr.to_well(), y)
     assert rel_err(r.cpu(), m.T.astype(np.float64) @ y.double().cpu().numpy()) < 1e-5

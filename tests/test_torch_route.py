@@ -22,6 +22,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import io as tio
@@ -365,11 +366,11 @@ def test_spmv_dispatch_and_method():
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     rs = tsm.CSR.from_scipy(MATRICES["n300"]()).to_route()
     x = torch.randn(300)
-    kr.reset_launches()
-    y = kr.route_spmv(rs, x)
+    rg.reset_launches()
+    y = rs @ x
     assert torch.equal(y, kr.route_spmv_ref(rs, x))
     assert torch.equal(tsm.spmv(rs, x), y)
-    assert kr.LAUNCHES == {"route_spmv": 0, "route_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"route_spmv": 0, "route_spmm": 0})
     assert "_rowgroup_plan" not in rs.__dict__          # the plain version builds no plan
 
 
@@ -457,10 +458,10 @@ def test_cuda_kernels_match_plain(cuda, dtype, name):
     rs = tsm.CSR.from_scipy(m, device=cuda).to_route().astype(dtype)
     x = torch.randn(m.shape[1], device=cuda)
     x = x.to(dtype) if dtype != torch.bfloat16 else x
-    kr.reset_launches()
-    y = kr.route_spmv(rs, x)
+    rg.reset_launches()
+    y = tsm.spmv(rs, x)
     torch.cuda.synchronize()
-    assert kr.LAUNCHES == {"route_spmv": 1, "route_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"route_spmv": 1, "route_spmm": 0})
     y_ref = kr.route_spmv_ref(rs, x)
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
@@ -470,19 +471,19 @@ def test_cuda_kernels_match_plain(cuda, dtype, name):
         got = y if split is plan.merge else kr.launch(plan, split, x)
         assert torch.equal(got, kr.route_spmv_walk(plan, split, x)), split.items
         assert rel_err(got.cpu(), y_ref.cpu()) < TOL[dtype]
-    assert torch.equal(kr.route_spmv(rs, x), y)            # reruns bitwise
+    assert torch.equal(tsm.spmv(rs, x), y)            # reruns bitwise
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     rs = tsm.CSR.from_scipy(MATRICES["n300"](), device=cuda).to_route()
     with pytest.raises(ValueError):
-        kr.route_spmv(rs, torch.zeros(300))                    # vector on the CPU
+        tsm.spmv(rs, torch.zeros(300))                    # vector on the CPU
     with pytest.raises(ValueError):
-        kr.route_spmv(rs, torch.zeros(301, device=cuda))       # wrong length
+        tsm.spmv(rs, torch.zeros(301, device=cuda))       # wrong length
     with pytest.raises(TypeError):
-        kr.route_spmv(rs, torch.zeros(300, dtype=torch.int32, device=cuda))
-    kr.reset_launches()
+        tsm.spmv(rs, torch.zeros(300, dtype=torch.int32, device=cuda))
+    rg.reset_launches()
     with pytest.raises(ValueError):
-        kr.route_spmv(rs, torch.zeros(2, 150, device=cuda))    # not a vector
-    assert kr.LAUNCHES == {"route_spmv": 0, "route_spmm": 0}
+        tsm.spmv(rs, torch.zeros(2, 150, device=cuda))    # not a vector
+    assert rg.LAUNCHES == plan_launches({"route_spmv": 0, "route_spmm": 0})

@@ -19,8 +19,10 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
+from sparsemat_tpu_torch.kernels import _rowgroup as rg
 from sparsemat_tpu_torch.kernels import slab as ksl
 
 SLAB_ARRAYS = ("vals", "lidx", "win_lo", "bucket_cnt")
@@ -317,13 +319,13 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     sl = tsm.CSR.from_scipy(m).to_slab()
     pk = tsm.CSR.from_scipy(m).to_slab_pack(rb=128, n_classes=3)
     x, B = torch.randn(400), torch.randn(400, 6)
-    ksl.reset_launches()
-    assert torch.equal(ksl.slab_spmv(sl, x), ksl.slab_spmv_ref(sl, x))
-    assert torch.equal(ksl.slab_pack_spmv(pk, x), ksl.slab_pack_spmv_ref(pk, x))
-    assert torch.equal(ksl.slab_spmm(sl, B), ksl.slab_spmm_ref(sl, B))
-    assert torch.equal(ksl.slab_pack_spmm(pk, B), ksl.slab_pack_spmm_ref(pk, B))
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
-                            "slab_stream_spmm": 0}
+    rg.reset_launches()
+    assert torch.equal(tsm.spmv(sl, x), ksl.slab_spmv_ref(sl, x))
+    assert torch.equal(tsm.spmv(pk, x), ksl.slab_pack_spmv_ref(pk, x))
+    assert torch.equal(tsm.spmm(sl, B), ksl.slab_spmm_ref(sl, B))
+    assert torch.equal(tsm.spmm(pk, B), ksl.slab_pack_spmm_ref(pk, B))
+    assert rg.LAUNCHES == plan_launches({"slab_spmv": 0, "slab_spmm": 0,
+                                         "slab_stream_spmv": 0, "slab_stream_spmm": 0})
 
 
 def test_plain_spmm_groups_columns_within_its_budget(monkeypatch):
@@ -409,32 +411,30 @@ def on_card(kind, name, arg, device):
 @pytest.mark.parametrize("kind,name,arg", CUDA_CASES)
 def test_cuda_kernels_match_plain(cuda, dtype, kind, name, arg):
     mat = on_card(kind, name, arg, cuda).astype(dtype)
-    spmv, spmv_ref, spmm, spmm_ref = (
-        (ksl.slab_spmv, ksl.slab_spmv_ref, ksl.slab_spmm, ksl.slab_spmm_ref) if kind == "slab"
-        else (ksl.slab_pack_spmv, ksl.slab_pack_spmv_ref, ksl.slab_pack_spmm,
-              ksl.slab_pack_spmm_ref))
+    spmv_ref, spmm_ref = ((ksl.slab_spmv_ref, ksl.slab_spmm_ref) if kind == "slab"
+                          else (ksl.slab_pack_spmv_ref, ksl.slab_pack_spmm_ref))
     x = torch.randn(mat.shape[1], device=cuda)
     x = x.to(dtype) if dtype != torch.bfloat16 else x
-    ksl.reset_launches()
-    y = spmv(mat, x)
+    rg.reset_launches()
+    y = tsm.spmv(mat, x)
     y_ref = spmv_ref(mat, x)
     torch.cuda.synchronize()
-    assert ksl.LAUNCHES == {"slab_spmv": 1, "slab_spmm": 0,     # one launch a product,
-                            "slab_stream_spmv": 0,
-                            "slab_stream_spmm": 0}               # any level count
+    assert rg.LAUNCHES == plan_launches({"slab_spmv": 1, "slab_spmm": 0,  # one launch a product,
+                                         "slab_stream_spmv": 0,
+                                         "slab_stream_spmm": 0})       # any level count
     assert y.dtype == y_ref.dtype and y.shape == (mat.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
-    assert torch.equal(spmv(mat, x), y)                   # reruns bitwise
+    assert torch.equal(tsm.spmv(mat, x), y)                   # reruns bitwise
     for m_rhs in (1, 5, 17, 128, 129):
         B = torch.randn(mat.shape[1], m_rhs, device=cuda)
         B = B.to(dtype) if dtype != torch.bfloat16 else B
-        Y = spmm(mat, B)
+        Y = tsm.spmm(mat, B)
         Y_ref = spmm_ref(mat, B)
         torch.cuda.synchronize()
         assert Y.dtype == Y_ref.dtype and Y.shape == (mat.shape[0], m_rhs)
         assert rel_err(Y.cpu(), Y_ref.cpu()) < TOL[dtype], m_rhs
-        assert torch.equal(spmm(mat, B), Y)
-    assert ksl.LAUNCHES["slab_spmm"] == 10                # one launch a product, any level count
+        assert torch.equal(tsm.spmm(mat, B), Y)
+    assert rg.LAUNCHES["slab_spmm"] == 10                # one launch a product, any level count
 
 
 @pytest.mark.cuda
@@ -446,13 +446,12 @@ def test_cuda_spmm_walks_a_long_power_law_row(cuda, kind):
     m = m.tocsr().astype(np.float32)
     csr = tsm.CSR.from_scipy(m, device=cuda)
     mat = csr.to_slab() if kind == "slab" else csr.to_slab_pack()
-    spmm, spmm_ref = ((ksl.slab_spmm, ksl.slab_spmm_ref) if kind == "slab"
-                      else (ksl.slab_pack_spmm, ksl.slab_pack_spmm_ref))
+    spmm_ref = ksl.slab_spmm_ref if kind == "slab" else ksl.slab_pack_spmm_ref
     B = torch.randn(3000, 33, device=cuda)
-    Y = spmm(mat, B)
+    Y = tsm.spmm(mat, B)
     assert rel_err(Y.cpu(), spmm_ref(mat, B).cpu()) < 1e-5
     assert rel_err(Y.cpu(), m.astype(np.float64) @ B.double().cpu().numpy()) < 1e-5
-    assert torch.equal(spmm(mat, B), Y)
+    assert torch.equal(tsm.spmm(mat, B), Y)
 
 
 @pytest.mark.cuda
@@ -475,8 +474,8 @@ def test_cuda_spmm_gives_a_csr_spmm_answer_on_non_finite_b(cuda):
     want = m @ B
     assert np.isnan(want[r0, 0]) and not np.isnan(want[:, 1]).any()
     Bt = torch.from_numpy(B).to(cuda)
-    for mat, spmm in ((sl, ksl.slab_spmm), (pk, ksl.slab_pack_spmm)):
-        np.testing.assert_allclose(spmm(mat, Bt).cpu().numpy(), want, rtol=1e-5, atol=1e-6,
+    for mat in (sl, pk):
+        np.testing.assert_allclose(tsm.spmm(mat, Bt).cpu().numpy(), want, rtol=1e-5, atol=1e-6,
                                    equal_nan=True)
     assert torch.isnan(ksl.slab_spmm_ref(sl, Bt)[:, 1]).any()
 
@@ -485,8 +484,8 @@ def test_cuda_spmm_gives_a_csr_spmm_answer_on_non_finite_b(cuda):
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     pk = on_card("slab_pack", "mixed_1500", "default", cuda)
     with pytest.raises(ValueError):
-        ksl.slab_pack_spmv(pk, torch.zeros(1500))                       # x on the CPU
+        tsm.spmv(pk, torch.zeros(1500))                       # x on the CPU
     with pytest.raises(ValueError):
-        ksl.slab_pack_spmv(pk, torch.zeros(1501, device=cuda))          # wrong length
+        tsm.spmv(pk, torch.zeros(1501, device=cuda))          # wrong length
     with pytest.raises(TypeError):
-        ksl.slab_pack_spmm(pk, torch.zeros(1500, 3, dtype=torch.int32, device=cuda))
+        tsm.spmm(pk, torch.zeros(1500, 3, dtype=torch.int32, device=cuda))

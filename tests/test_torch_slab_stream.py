@@ -21,6 +21,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.formats.slab import SUBLANE
@@ -190,7 +191,7 @@ def test_dispatch_and_cpu_wrapper_counts_nothing():
     csr = tsm.CSR.from_scipy(m)
     ts = csr.to_slab_stream()
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(1100).astype(np.float32))
-    ksl.reset_launches()
+    rg.reset_launches()
     y = tsm.spmv(ts, x)
     assert torch.equal(y, ksl.slab_stream_spmv_ref(ts, x))
     assert torch.equal(tsm.spmv(csr, x, method="slab_stream"), y)
@@ -199,8 +200,8 @@ def test_dispatch_and_cpu_wrapper_counts_nothing():
     assert torch.equal(yd, y) and float(d) == pytest.approx(float(x @ y), rel=1e-5)
     B = torch.from_numpy(np.random.default_rng(5).standard_normal((1100, 3)).astype(np.float32))
     assert rel_err(tsm.spmm(ts, B), m @ B.numpy()) < 1e-5          # through CSR
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
-                            "slab_stream_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"slab_spmv": 0, "slab_spmm": 0,
+                                         "slab_stream_spmv": 0, "slab_stream_spmm": 0})
 
 
 # -- the CUDA kernel's design, replayed on the host ---------------------------------
@@ -295,16 +296,16 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, rb):
     ts = tsm.CSR.from_scipy(MATRICES[name](), device=cuda).to_slab_stream(rb=rb).astype(dtype)
     x = torch.randn(ts.shape[1], device=cuda)
     x = x.to(dtype) if dtype != torch.bfloat16 else x
-    ksl.reset_launches()
-    y = ksl.slab_stream_spmv(ts, x)
+    rg.reset_launches()
+    y = tsm.spmv(ts, x)
     y_ref = ksl.slab_stream_spmv_ref(ts, x)
     torch.cuda.synchronize()
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 1,
-                            "slab_stream_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"slab_spmv": 0, "slab_spmm": 0,
+                                         "slab_stream_spmv": 1, "slab_stream_spmm": 0})
     assert y.dtype == y_ref.dtype and y.shape == (ts.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert rel_err(y.cpu(), rg.spmv_walk(rg.plan_of(ts), x).cpu()) < TOL[dtype]
-    assert torch.equal(ksl.slab_stream_spmv(ts, x), y)           # reruns bitwise
+    assert torch.equal(tsm.spmv(ts, x), y)           # reruns bitwise
 
 
 @pytest.mark.cuda
@@ -312,21 +313,21 @@ def test_cuda_kernel_takes_chunks_out_of_block_order(cuda):
     ts = tsm.CSR.from_scipy(mixed_degree(1100, 22), device=cuda).to_slab_stream(rb=128)
     shuffled = shuffled_with_stray(ts)
     x = torch.randn(1100, device=cuda)
-    y = ksl.slab_stream_spmv(shuffled, x)
+    y = tsm.spmv(shuffled, x)
     assert rel_err(y.cpu(), ksl.slab_stream_spmv_ref(ts, x).cpu()) < 1e-5
     plan, want = rg.plan_of(shuffled), rg.plan_of(ts)
     assert plan.grp_ptr.device == x.device
     for f in ("grp_ptr", "cols", "mask", "vals"):
         assert torch.equal(getattr(plan, f), getattr(want, f)), f
-    assert torch.equal(ksl.slab_stream_spmv(ts, x), y)   # one plan, one answer
+    assert torch.equal(tsm.spmv(ts, x), y)   # one plan, one answer
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     ts = tsm.CSR.from_scipy(mixed_degree(1100, 22), device=cuda).to_slab_stream()
     with pytest.raises(ValueError):
-        ksl.slab_stream_spmv(ts, torch.zeros(1100))                    # x on the CPU
+        tsm.spmv(ts, torch.zeros(1100))                    # x on the CPU
     with pytest.raises(ValueError):
-        ksl.slab_stream_spmv(ts, torch.zeros(1101, device=cuda))       # wrong length
+        tsm.spmv(ts, torch.zeros(1101, device=cuda))       # wrong length
     with pytest.raises(TypeError):
-        ksl.slab_stream_spmv(ts, torch.zeros(1100, dtype=torch.int32, device=cuda))
+        tsm.spmv(ts, torch.zeros(1100, dtype=torch.int32, device=cuda))

@@ -17,17 +17,13 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import checkpoint as tck
 from sparsemat_tpu_torch import matgen
 from sparsemat_tpu_torch.interop import from_reference
 from sparsemat_tpu_torch.kernels import _rowgroup as rg
-from sparsemat_tpu_torch.kernels import route as kr
-from sparsemat_tpu_torch.kernels import slab as ksl
-from sparsemat_tpu_torch.kernels import spmm as ksp
-from sparsemat_tpu_torch.kernels import strip as ks
-from sparsemat_tpu_torch.kernels import well as kw
 from sparsemat_tpu_torch.ops import matvec as tmv
 from sparsemat_tpu_torch.utils import profiling
 
@@ -402,25 +398,25 @@ def test_spmm_path_end_to_end():
     tol = 1e-10 * float(np.linalg.norm(rhs))
     pk = tsm.CSR.from_scipy(dom).to_slab_pack()
     assert pk.overflow is not None
-    ksl.reset_launches()
+    rg.reset_launches()
     x, info = tsm.solvers.bicgstab(pk, torch.from_numpy(rhs), tol=tol)
     jx, jinfo = jsm.solvers.bicgstab(jsm.CSR.from_scipy(dom).to_slab_pack(),
                                      jnp.asarray(rhs), tol=tol)
     assert bool(info.converged) and bool(jinfo.converged)
     assert abs(int(info.iterations) - int(jinfo.iterations)) <= 1
     assert rel_err(x, jx) < 1e-8
-    assert ksl.LAUNCHES == {"slab_spmv": 0, "slab_spmm": 0, "slab_stream_spmv": 0,
-                            "slab_stream_spmm": 0}
-    assert ksp.LAUNCHES["bsr_spmm"] == 0
+    assert rg.LAUNCHES == plan_launches({"slab_spmv": 0, "slab_spmm": 0,
+                                         "slab_stream_spmv": 0, "slab_stream_spmm": 0})
+    assert rg.LAUNCHES["bsr_spmm"] == 0
 
 
 # -- the SpMM of the plan formats with no SpMM kernel in the JAX package -------------------
 
-#: format → (its freeze, its kernel module, the SpMM wrapper and launch name)
-PLAN_FORMATS = {"strip": (lambda c: c.to_strip(), ks, "strip_spmm"),
-                "well": (lambda c: c.to_well(), kw, "well_spmm"),
-                "slab_stream": (lambda c: c.to_slab_stream(), ksl, "slab_stream_spmm"),
-                "route": (lambda c: c.to_route(), kr, "route_spmm")}
+#: format → (its freeze, its SpMM's launch key)
+PLAN_FORMATS = {"strip": (lambda c: c.to_strip(), "strip_spmm"),
+                "well": (lambda c: c.to_well(), "well_spmm"),
+                "slab_stream": (lambda c: c.to_slab_stream(), "slab_stream_spmm"),
+                "route": (lambda c: c.to_route(), "route_spmm")}
 
 
 def fem():
@@ -458,10 +454,10 @@ def test_plan_walk_of_the_plan_formats_matches_csr_spmm(fmt, name, m_rhs):
 
 @pytest.mark.parametrize("fmt", list(PLAN_FORMATS))
 def test_cpu_spmm_of_the_plan_formats_goes_through_csr(fmt):
-    """On the CPU the wrapper takes the plain path: one conversion to CSR a
+    """On the CPU the dispatch takes the plain path: one conversion to CSR a
     call, the CSR's own SpMM, no launch."""
     m = mixed()
-    freeze, mod, name = PLAN_FORMATS[fmt]
+    freeze, name = PLAN_FORMATS[fmt]
     mat = freeze(tsm.CSR.from_scipy(m))
     B = torch.from_numpy(np.random.default_rng(5).standard_normal((m.shape[1], 8))
                          .astype(np.float32))
@@ -470,9 +466,9 @@ def test_cpu_spmm_of_the_plan_formats_goes_through_csr(fmt):
         with profiling.tracing():
             Y = tsm.spmm(mat, B)
             assert torch.equal(mat @ B, Y)
-            assert torch.equal(getattr(mod, name)(mat, B), Y)
+            assert torch.equal(tsm.spmm(mat, B), Y)
         assert conversions() == {"csr": 3}
-        assert mod.LAUNCHES[name] == 0
+        assert rg.LAUNCHES[name] == 0
     finally:
         profiling.reset_trace()
     assert torch.equal(Y, tsm.spmm(mat.to_csr(), B))
@@ -495,8 +491,7 @@ def test_cuda_dispatch_goes_through_the_kernels(cuda):
     B = torch.randn(m.shape[1], 9, device=cuda)
     x = B[:, 0].contiguous()
     want = torch.from_numpy(m.astype(np.float64) @ B.double().cpu().numpy())
-    ksp.reset_launches()
-    ksl.reset_launches()
+    rg.reset_launches()
     for mat in (tsm.BSR.from_csr(csr), tsm.BSR.from_csr_device(csr, br=64, bc=256),
                 csr.to_slab_pack(), csr.to_slab()):
         assert rel_err((mat @ B).cpu(), want) < 1e-5
@@ -506,11 +501,12 @@ def test_cuda_dispatch_goes_through_the_kernels(cuda):
     for mat in (csr.to_slab_pack(), csr.to_slab()):
         assert rel_err(tsm.spmv(mat, x).cpu(), want[:, 0]) < 1e-5
     torch.cuda.synchronize()
-    assert ksp.LAUNCHES["bsr_spmm"] == 5
+    assert rg.LAUNCHES["bsr_spmm"] == 5
     assert csr.to_slab_pack().overflow is not None         # the SlabPack has an overflow pack
-    assert ksl.LAUNCHES == {"slab_spmm": 6,                # one launch a product
-                            "slab_spmv": 2, "slab_stream_spmv": 0,
-                            "slab_stream_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"bsr_spmm": 5,
+                                         "slab_spmm": 6,                # one launch a product
+                                         "slab_spmv": 2, "slab_stream_spmv": 0,
+                                         "slab_stream_spmm": 0})
     for mat in (csr, csr.to_ell(), csr.to_coo()):          # no kernel of their own
         assert rel_err(tsm.spmm(mat, B).cpu(), want) < 1e-5
 
@@ -523,7 +519,7 @@ def test_cuda_spmm_of_the_plan_formats_launches_the_rowgroup_kernel(cuda, fmt, n
     SpMM a call over the matrix's plan, and no conversion, at m = 1, 9 (a
     ragged tile, scalar loads) and 128 (16-byte loads)."""
     m = PLAN_MATRICES[name]()
-    freeze, mod, launch = PLAN_FORMATS[fmt]
+    freeze, launch = PLAN_FORMATS[fmt]
     mat = freeze(tsm.CSR.from_scipy(m, device=cuda))
     profiling.reset_trace()
     try:
@@ -533,12 +529,12 @@ def test_cuda_spmm_of_the_plan_formats_launches_the_rowgroup_kernel(cuda, fmt, n
             with profiling.tracing():
                 Y = tsm.spmm(mat, B)
                 torch.cuda.synchronize()
-                assert mod.LAUNCHES[launch] == 2 * k + 1
+                assert rg.LAUNCHES[launch] == 2 * k + 1
                 assert torch.equal(mat @ B, Y)               # reruns bitwise
             assert Y.dtype == torch.float32 and Y.shape == (m.shape[0], m_rhs)
             assert rel_err(Y.cpu(), want) < 1e-5
             assert rel_err(Y.cpu(), rg.walk(rg.plan_of(mat), B).cpu()) < 1e-5
         assert conversions() == {}
-        assert mod.LAUNCHES[launch] == 6
+        assert rg.LAUNCHES[launch] == 6
     finally:
         profiling.reset_trace()

@@ -17,6 +17,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_cpu import plan_launches
 from _torch_cpu import port_on_cpu  # noqa: F401  (autouse: the tests ask for the CPU)
 import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch.formats import strip as tstrip
@@ -236,9 +237,9 @@ def test_spmv_dispatch_and_method():
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     st = tsm.CSR.from_scipy(banded_random(300, 50, 0.05, 1)).to_strip()
     x = torch.randn(300)
-    ks.reset_launches()
-    assert torch.equal(ks.strip_spmv(st, x), ks.strip_spmv_ref(st, x))
-    assert ks.LAUNCHES == {"strip_spmv": 0, "strip_spmm": 0}
+    rg.reset_launches()
+    assert torch.equal(tsm.spmv(st, x), ks.strip_spmv_ref(st, x))
+    assert rg.LAUNCHES == plan_launches({"strip_spmv": 0, "strip_spmm": 0})
 
 
 # -- canonical views, structure, interop -------------------------------------------
@@ -311,23 +312,23 @@ def test_cuda_kernel_matches_plain(cuda, dtype, name, layout):
     st = tsm.CSR.from_scipy(m, device=cuda).to_strip(**LAYOUTS[layout]).astype(dtype)
     x = torch.randn(m.shape[1], device=cuda)
     x = x.to(dtype) if dtype != torch.bfloat16 else x
-    ks.reset_launches()
-    y = ks.strip_spmv(st, x)
+    rg.reset_launches()
+    y = tsm.spmv(st, x)
     y_ref = ks.strip_spmv_ref(st, x)
     torch.cuda.synchronize()
-    assert ks.LAUNCHES == {"strip_spmv": 1, "strip_spmm": 0}
+    assert rg.LAUNCHES == plan_launches({"strip_spmv": 1, "strip_spmm": 0})
     assert y.dtype == y_ref.dtype and y.shape == (m.shape[0],)
     assert rel_err(y.cpu(), y_ref.cpu()) < TOL[dtype]
     assert rel_err(y.cpu(), rg.spmv_walk(rg.plan_of(st), x).cpu()) < TOL[dtype]
-    assert torch.equal(ks.strip_spmv(st, x), y)          # reruns bitwise
+    assert torch.equal(tsm.spmv(st, x), y)          # reruns bitwise
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     st = tsm.CSR.from_scipy(banded_random(300, 50, 0.05, 1), device=cuda).to_strip()
     with pytest.raises(ValueError):
-        ks.strip_spmv(st, torch.zeros(300))                  # vector on the CPU
+        tsm.spmv(st, torch.zeros(300))                  # vector on the CPU
     with pytest.raises(ValueError):
-        ks.strip_spmv(st, torch.zeros(301, device=cuda))     # wrong length
+        tsm.spmv(st, torch.zeros(301, device=cuda))     # wrong length
     with pytest.raises(TypeError):
-        ks.strip_spmv(st, torch.zeros(300, dtype=torch.int32, device=cuda))
+        tsm.spmv(st, torch.zeros(300, dtype=torch.int32, device=cuda))

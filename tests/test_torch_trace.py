@@ -2,8 +2,8 @@
 is off, host ranges named ``sparsemat.*`` under ``torch.profiler``, a table
 of counts and self times that adds up, the ``tracing()`` switch, the
 solver loop's step counters, the dispatch's conversion counter, the set-up
-spans of a freeze, and the one registry of counters that holds the kernel
-modules' ``LAUNCHES``."""
+spans of a freeze, and the one registry of counters that holds the three
+launch groups (``kernels.dia``, ``kernels.plan``, ``parallel.dist``)."""
 
 import contextlib
 import itertools
@@ -20,11 +20,6 @@ import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import solvers
 from sparsemat_tpu_torch.kernels import _rowgroup
 from sparsemat_tpu_torch.kernels import dia as kdia
-from sparsemat_tpu_torch.kernels import route as kroute
-from sparsemat_tpu_torch.kernels import slab as kslab
-from sparsemat_tpu_torch.kernels import spmm as kspmm
-from sparsemat_tpu_torch.kernels import strip as kstrip
-from sparsemat_tpu_torch.kernels import well as kwell
 from sparsemat_tpu_torch.parallel import dist as pdist
 from sparsemat_tpu_torch.utils import profiling
 
@@ -304,9 +299,9 @@ def test_plan_self_time_leaves_a_nested_build_out():
 
 def test_the_registry_holds_the_seven_launch_dicts():
     reg = profiling.COUNTERS
-    mods = {"kernels.dia": kdia, "kernels.route": kroute, "kernels.slab": kslab,
-            "kernels.spmm": kspmm, "kernels.strip": kstrip, "kernels.well": kwell,
-            "parallel.dist": pdist}
+    # three groups: the DIA kernels, every launch over a row-group plan (the
+    # seven formats' products), and the shard products
+    mods = {"kernels.dia": kdia, "kernels.plan": _rowgroup, "parallel.dist": pdist}
     for name, mod in mods.items():
         assert reg[name] is mod.LAUNCHES, name
     assert set(reg) == set(mods) | {"solver", "ops.conversions"}
