@@ -52,9 +52,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   4 main path   assemble, freeze, spmv (DIA kernel vs the CSR stream path),
                 spmv_chain (the grid kernel at 2048², the cluster kernel on
                 the 10⁴-row band at k = 1024, each against the CSR stream
-                path), and 200 CG iterations through the kernels and
-                through the plain versions; launch counters must be > 0;
-                the true residual in f64 on the host
+                path), and 200 CG iterations through the kernels (the
+                SpMV-dot and CG's two step kernels) and through the plain
+                versions (the plain SpMV and CG's body of PyTorch ops and
+                selects); launch counters must be > 0; the true residual
+                in f64 on the host; one CG step of the two step kernels
+                against its plain version on a random 2048² f32 state,
+                active, and stopped by rr and by k (bitwise unchanged)
   5 converge    CG on the 512² system to rtol 1e-5
   6 determinism spmv, spmv_dot and the 200-iteration CG rerun bitwise
   7 times       the DIA SpMV on the 2^24-row band and at 2048², and the
@@ -63,7 +67,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 the plain version, its device time, the plan's picks (V,
                 tile, compiled count, grid, edge tiles) and torch.mv (+
                 torch.dot) on the CSR; one spmv_dot call launches one
-                device kernel; CG iterations/s; the
+                device kernel; CG's update and direction kernels, each
+                kernel's device time a call inside a CG step against its
+                plain version and its bound, and the 2048² solve in ms a
+                step through the kernels and through CG's body of PyTorch
+                ops, in turns; CG iterations/s, kernels vs plain; the
                 10⁴-row k = 1024 chain on the cluster and the grid kernel
                 in turns (f32 and f64), µs per step against the bound,
                 the cluster kernel's device time, and a sweep of cluster
@@ -235,8 +243,8 @@ SOR sweep are PyTorch ops on the card, as the reference has no TPU kernel
 there.
 Every kernel's timing phase also times one PyTorch library call that
 computes the same function on the same operator (torch.mv or
-torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot and the
-chain), as a yardstick only; computes the kernel's
+torch.sparse.mm on a torch.sparse_csr_tensor; none for spmv_dot, the
+chain and CG's step kernels), as a yardstick only; computes the kernel's
 bound: the larger of the bytes the function needs over 3.35 TB/s and its
 f32 operations over 67 Tflop/s (the H100 SXM's published rates), where a
 sparse product needs its entries in CSR (value and column index, row
@@ -269,6 +277,7 @@ f32 (TF32 is switched off below).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -286,6 +295,7 @@ from sparsemat_tpu_torch import checkpoint, matgen, parallel, solvers
 from sparsemat_tpu_torch import io as tio
 from sparsemat_tpu_torch.kernels import _rowgroup as krg
 from sparsemat_tpu_torch.kernels import dia as kd
+from sparsemat_tpu_torch.kernels import krylov as kk
 from sparsemat_tpu_torch.kernels import route as kr
 from sparsemat_tpu_torch.kernels import slab as ksl
 from sparsemat_tpu_torch.kernels import spmm as ksp
@@ -299,6 +309,7 @@ from sparsemat_tpu_torch.parallel.dryrun import dryrun_multichip
 #: kernel → (its source, the TPU kernel it replaces)
 _DIA_CU = "sparsemat_tpu_torch/csrc/dia.cu"
 _SPMV_CU = "sparsemat_tpu_torch/csrc/spmv.cu"
+_KRYLOV_CU = "sparsemat_tpu_torch/csrc/krylov.cu"
 KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dia_spmv_dot": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:305"),
            "dia_spmv_chain": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:202"),
@@ -320,7 +331,10 @@ KERNELS = {"dia_spmv": (_DIA_CU, "sparsemat_tpu/kernels/dia.py:76"),
            "dist_csr_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
            "dist_ell_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
            "dist_csr_subset_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:50"),
-           "dist_slab_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:165")}
+           "dist_slab_spmv": (_SPMV_CU, "sparsemat_tpu/kernels/spmv.py:165"),
+           # CG's step algebra: the XLA fusions of the reference's CG body
+           "cg_update": (_KRYLOV_CU, "sparsemat_tpu/solvers.py:132-137 (XLA fusions)"),
+           "cg_direction": (_KRYLOV_CU, "sparsemat_tpu/solvers.py:138-139 (XLA fusions)")}
 TOL = {torch.float32: {"y": 1e-5, "dot": 1e-4}, torch.float64: {"y": 1e-12, "dot": 1e-12},
        torch.bfloat16: {"y": 1e-5, "dot": 1e-4}, torch.float16: {"y": 1e-5, "dot": 1e-4}}
 SEED = 0
@@ -752,6 +766,139 @@ def cg_iters_per_s(A, b, iters, M=None):
     return iters / dt
 
 
+def plain_cg_iters_per_s(dia, b, iters):
+    """``cg_iters_per_s`` of the plain CG: the body of PyTorch ops and
+    selects over the plain SpMV."""
+    with torch_body():
+        return cg_iters_per_s(lambda v: kd.dia_spmv_ref(dia, v), b, iters)
+
+
+@contextlib.contextmanager
+def torch_body():
+    """CG sent to its body of PyTorch ops and selects, in place of the step
+    kernels of ``kernels/krylov.py``: the plain version of the fused body."""
+    chosen = solvers._fused_reason
+    solvers._fused_reason = lambda *a: "the plain version"
+    try:
+        yield
+    finally:
+        solvers._fused_reason = chosen
+
+
+def cg_state(g, dia, dtype=torch.float32, share=0.0):
+    """A random CG state over ``dia`` (x, r, p, A·p, pAp, rr, k, maxiter,
+    thresh2): active where ``share`` (thresh2 over rr) is at most 1."""
+    dev, n = dia.data.device, dia.shape[0]
+    x, r, p = (torch.randn(n, generator=g, device=dev, dtype=dtype) for _ in range(3))
+    Ap, pAp = tsm.spmv_dot(dia, p)
+    rr = torch.dot(r, r)
+    return dict(x=x, r=r, p=p, Ap=Ap, pAp=pAp, rr=rr, k=torch.zeros((), dtype=torch.int32,
+                device=dev), maxiter=torch.tensor(2 ** 31 - 1, dtype=torch.int32, device=dev),
+                thresh2=share * rr)
+
+
+def plain_update(st):
+    """The plain version of ``cg_update_kernel``: the update half of CG's
+    body of PyTorch ops (z = r) and its commits."""
+    active = (st["k"] < st["maxiter"]) & (st["rr"] >= st["thresh2"])
+    alpha = torch.where(st["pAp"] != 0, st["rr"] / st["pAp"], 0)
+    x, r = st["x"] + alpha * st["p"], st["r"] - alpha * st["Ap"]
+    rr = torch.sum(r * r)
+    beta = torch.where(st["rr"] != 0, rr / st["rr"], 0)
+    return active, beta, dict(x=torch.where(active, x, st["x"]), r=torch.where(active, r, st["r"]),
+                              rr=torch.where(active, rr, st["rr"]),
+                              k=torch.where(active, st["k"] + 1, st["k"]))
+
+
+def plain_direction(st, active, beta, r):
+    """The plain version of ``cg_direction_kernel``: p = r + βp, committed
+    where the step is active."""
+    return torch.where(active, r + beta * st["p"], st["p"])
+
+
+def kernel_step(st):
+    """One launch pair of ``kernels/krylov.py`` on a copy of ``st``."""
+    out = {k: st[k].clone() for k in ("x", "r", "p", "rr", "k")}
+    kk.cg_step(out["x"], out["r"], out["p"], st["Ap"], st["pAp"], out["rr"], out["k"],
+               st["maxiter"], st["thresh2"], *kk.step_scratch(st["x"].device))
+    return out
+
+
+def check_cg_step(g, dia):
+    """Phase 4's step: the two step kernels against their plain versions on
+    one random 2048² f32 state, active (x, r, rr and p at f32 rounding, k
+    one up: a wrong α, β or flag fails), then stopped by rr < thresh2 and
+    by k = maxiter (every value bitwise unchanged).  Returns the worst
+    relative error of the active step."""
+    st = cg_state(g, dia)
+    got = kernel_step(st)
+    active, beta, want = plain_update(st)
+    want["p"] = plain_direction(st, active, beta, want["r"])
+    check(int(got["k"]) == 1, f"the active step left k at {int(got['k'])}")
+    errs = [compare("cg_update", got[key], want[key], TOL[torch.float32]["y"], f"cg_step {key}")
+            for key in ("x", "r")]
+    errs.append(compare("cg_update", got["rr"], want["rr"], TOL[torch.float32]["dot"],
+                        "cg_step rr"))
+    errs.append(compare("cg_direction", got["p"], want["p"], TOL[torch.float32]["y"],
+                        "cg_step p"))
+    for label, stopped in (("rr < thresh2", dict(st, thresh2=2 * st["rr"])),
+                           ("k = maxiter", dict(st, maxiter=st["k"].clone()))):
+        out = kernel_step(stopped)
+        for key, v in out.items():
+            check(torch.equal(v, stopped[key]), f"cg_step stopped by {label} changed {key}")
+    return max(errs)
+
+
+def cg_step_times(dev, g, times, dia, b, steps=64):
+    """Phase 7's rows of the two step kernels at 2048² f32: each kernel's
+    device time per call inside a CG step (SpMV-dot and the launch pair, op
+    by op on an evolving state, from the profiler), its plain version's
+    time (CUDA events on one fixed state), and its bound (the update reads
+    x, p, r and A·p and writes x and r, 6n values; the direction reads r
+    and p and writes p, 3n).  Also the whole solve in ms a step, the
+    kernels against CG's body of PyTorch ops, both over the DIA kernel and
+    through the operator's block graph, in turns."""
+    st = cg_state(g, dia)
+    work = kk.step_scratch(dev)
+    # a CG from its first step (p = r), which no number of steps overflows
+    live = {k: st[k].clone() for k in ("x", "r", "rr", "k")}
+    live["p"] = live["r"].clone()
+
+    def step():
+        Ap, pAp = tsm.spmv_dot(dia, live["p"])
+        kk.cg_step(live["x"], live["r"], live["p"], Ap, pAp, live["rr"], live["k"],
+                   st["maxiter"], st["thresh2"], *work)
+
+    def plain_halves():
+        active, beta, out = plain_update(st)
+        return plain_direction(st, active, beta, out["r"])
+
+    n, item = dia.shape[0], st["x"].element_size()
+    upd = plain_update(st)
+    plain = {"cg_update": lambda: plain_update(st),
+             "cg_direction": lambda: plain_direction(st, upd[0], upd[1], upd[2]["r"])}
+    flops = {"cg_update": 6 * n, "cg_direction": 2 * n}
+    for name, values in (("cg_update", 6), ("cg_direction", 3)):
+        dev_ms = device_us(step, steps, f"{name}_kernel", lambda: kk.LAUNCHES[name]) / 1e3
+        p_ms = cuda_ms(plain[name], 50)
+        b_ms, by = record(times, name, dev_ms, p_ms, values * n * item, flops[name], None)
+        times[name].update(device_ms=dev_ms, ms_from="device trace")
+        say("7 times", f"{name} 2048² f32: device {dev_ms:.4f} ms a call ({b_ms / dev_ms:.1%} of "
+            f"the bound); plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({by})")
+
+    def solve_ms(fused):
+        body = contextlib.nullcontext() if fused else torch_body()
+        with body:
+            return 1e3 / cg_iters_per_s(dia, b, 320)
+
+    runs = [solve_ms(True), solve_ms(False), solve_ms(False), solve_ms(True)]
+    whole = {"kernels_ms": [runs[0], runs[3]], "torch_body_ms": runs[1:3],
+             "one_step_plain_ms": cuda_ms(plain_halves, 50)}
+    times["cg_update"]["cg_step_ms"] = whole
+    say("7 times", f"CG step 2048² f32 through the block graph: kernels {runs[0]:.4f}, "
+        f"{runs[3]:.4f} ms a step; body of PyTorch ops {runs[1]:.4f}, {runs[2]:.4f} ms a step")
+
+
 def build_all():
     """Build every native library at once (one compiler process each) and
     return the seconds each took; a failed build raises."""
@@ -762,6 +909,7 @@ def build_all():
 
     jobs = {"csrc/dia.cu": kd._kernels, "csrc/route.cu": kr._kernels,
             "csrc/spmm.cu": krg._kernels, "csrc/spmv.cu": krg._spmv_kernels,
+            "csrc/krylov.cu": kk._kernels,
             "C++ assembly store": get_lib}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
@@ -2398,7 +2546,7 @@ def block_matvec(d):
 
 
 def reset_all_launches():
-    for module in (kd, krg, pdist):
+    for module in (kd, krg, pdist, kk):
         module.reset_launches()
 
 
@@ -2686,6 +2834,7 @@ def main():
     # 4 ------------------------------------------------------------------------
     n = 2048
     kd.reset_launches()
+    kk.reset_launches()
     csr, dia, (t_asm, t_csr, t_dia) = assemble_poisson(n, dev)
     m = n * n
     x = torch.randn(m, generator=g, device=dev)
@@ -2713,10 +2862,12 @@ def main():
     launches = dict(kd.LAUNCHES)
     chains = dict(kd.CHAIN_KERNELS)
     launches.update({CHAIN_NAME[kern]: count for kern, count in chains.items()})
+    launches.update(kk.LAUNCHES)                    # CG's step kernels
     for name, count in launches.items():
         check(count > 0, f"the main path launched {name} no time")
-    x_plain, info_plain = solvers.cg(lambda v: kd.dia_spmv_ref(dia, v), b,
-                                     tol=0.0, maxiter=200)
+    with torch_body():
+        x_plain, info_plain = solvers.cg(lambda v: kd.dia_spmv_ref(dia, v), b,
+                                         tol=0.0, maxiter=200)
     check(int(info.iterations) == int(info_plain.iterations) == 200, "CG iterations")
     e_cg = compare(None, x_cg, x_plain, 1e-4, "CG x, kernels vs plain")
     r_true, b_norm = host_residual(csr, x_cg, b)
@@ -2724,11 +2875,13 @@ def main():
     # the f32 recursive residual drifts from the true one by rounding in
     # the x and r updates; 5% bounds that drift at 200 iterations
     check(abs(r_true - r_rec) <= 0.05 * r_true, f"true residual {r_true} vs recursive {r_rec}")
+    e_step = check_cg_step(g, dia)
     say("4 main path", f"2048² Poisson: {m} rows, {csr.n_non_zero_entries()} entries; "
         f"assemble {t_asm:.3f} s, to_csr {t_csr:.3f} s, to_dia {t_dia:.3f} s; "
         f"spmv rel err {e_spmv:.2e}; chain rel err {e_chain:.2e}; 10^4 band chain k=1024 "
         f"rel err {e_chain_band:.2e}; chains by kernel {chains}; CG 200 iters "
-        f"x rel err kernels vs plain {e_cg:.2e}; ‖r‖ recursive {r_rec:.6e} true (f64) "
+        f"x rel err kernels vs plain {e_cg:.2e}; one CG step, kernels vs plain, worst rel err "
+        f"{e_step:.2e}; ‖r‖ recursive {r_rec:.6e} true (f64) "
         f"{r_true:.6e} of ‖b‖ {b_norm:.6e}; launches {launches}")
 
     # 5 ------------------------------------------------------------------------
@@ -2757,11 +2910,13 @@ def main():
     dia_spmv_times(dev, g, times, dia, csr)
     chain_times(dev, g, times)
 
-    # CG's loop takes the fused SpMV + dot; the plain SpMV runs once before
-    # it, so the SpMV's step is a product of spmv
-    per = per_step(lambda: kd.LAUNCHES, lambda j: solvers.cg(dia, b, tol=0.0, maxiter=j), 32,
-                   dia)
-    note_steps(times, "dia_spmv_dot", per["dia_spmv_dot"], "CG iteration, 2048² Poisson DIA")
+    # CG's loop takes the fused SpMV + dot and the two step kernels; the
+    # plain SpMV runs once before it, so the SpMV's step is a product of spmv
+    cg_step_times(dev, g, times, dia, b)
+    per = per_step(lambda: {**kd.LAUNCHES, **kk.LAUNCHES},
+                   lambda j: solvers.cg(dia, b, tol=0.0, maxiter=j), 32, dia)
+    for name in ("dia_spmv_dot", "cg_update", "cg_direction"):
+        note_steps(times, name, per[name], "CG iteration, 2048² Poisson DIA")
     per_v = per_step(lambda: kd.LAUNCHES, lambda j: [tsm.spmv(dia, x) for _ in range(j)], 1)
     note_steps(times, "dia_spmv", per_v["dia_spmv"], "spmv(DIA, x) product, 2048² Poisson")
     per_c = per_step(chain_counts, lambda j: [tsm.spmv_chain(dia, x, 4) for _ in range(j)], 1)
@@ -2776,9 +2931,8 @@ def main():
     say("7 times", f"DIA launches per CG iteration {per}; per spmv {per_v}; per "
         f"spmv_chain(k=4) at 2048² {per_c}; per spmv_chain(k=1024) on the 10^4 band {per_b}")
     for label, A_, b_, iters in (("512²", dia5, b5, 640), ("2048²", dia, b, 320)):
-        plain = (lambda A__: (lambda v: kd.dia_spmv_ref(A__, v)))(A_)
-        runs = [cg_iters_per_s(plain, b_, iters), cg_iters_per_s(A_, b_, iters),
-                cg_iters_per_s(A_, b_, iters), cg_iters_per_s(plain, b_, iters)]
+        runs = [plain_cg_iters_per_s(A_, b_, iters), cg_iters_per_s(A_, b_, iters),
+                cg_iters_per_s(A_, b_, iters), plain_cg_iters_per_s(A_, b_, iters)]
         say("7 times", f"CG f32 {label}: kernels {(runs[1] + runs[2]) / 2:.1f} iters/s "
             f"runs {runs[1:3]}; plain {(runs[0] + runs[3]) / 2:.1f} iters/s "
             f"runs {[runs[0], runs[3]]}")

@@ -10,8 +10,12 @@ host round-trip per iteration.  Here ``_while`` runs the loop body in fixed
 blocks of ``SYNC_EVERY`` on the device: each step computes a device-side
 ``active = cond(state)``, commits its update through
 ``torch.where(active, new, old)``, and the host reads the condition once per
-block.  The state freezes once the condition fails and the counters count
-only active steps, so the final states and ``iterations`` equal the
+block.  A body may commit itself instead (``_commits_itself``): it computes
+``active`` on the device and writes its state in place only where it holds.
+Unpreconditioned CG on one CUDA card in f32 or f64 does, through the two
+step kernels of ``kernels/krylov.py`` (``_fused_reason`` says where it
+does not).  The state freezes once the condition fails and the counters
+count only active steps, so the final states and ``iterations`` equal the
 reference's.  On a CUDA card, over a format whose product is a launch over a
 plan cached on the matrix, a block is captured once into a CUDA graph and
 replayed for every later block of every solve on that operator and stream
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .formats import DIA
+from .kernels import krylov
 from .ops.matvec import PLANNED
 from .types import is_float_dtype
 from .utils import profiling
@@ -114,9 +119,23 @@ def _threshold(b, tol, rtol):
                          rtol * torch.sqrt(_dot(b, b)))
 
 
+def _commits_itself(body):
+    """Mark ``body`` as one that commits its own step, in place and only
+    where the loop's condition holds, which it computes on the device:
+    ``_block`` then calls it with no ``cond`` and no select."""
+    body.commits = True
+    return body
+
+
 def _block(cond, body, state: dict, consts: dict, every: int, on_step=None) -> dict:
     """``every`` steps of the loop, each committed only where ``cond``
-    held."""
+    held: by ``torch.where`` on the body's new state, or, for a body that
+    commits itself (``_commits_itself``), by the body, under the device's
+    active flag (its state is then updated in place and returned)."""
+    if getattr(body, "commits", False):
+        for _ in range(every):
+            body(state, consts)
+        return state
     for _ in range(every):
         active = cond(state, consts)
         new = body(state, consts)
@@ -156,11 +175,13 @@ class _BlockGraph:
     """One block of a solver loop as a CUDA graph.  The loop's state and
     its invariants live in static buffers that the graph reads; the
     captured block ends by copying its committed state back into the
-    state's buffers, so each replay runs the next block.  Keeps ``M``
+    state's buffers (a body that commits itself writes them in place, and
+    needs no copy), so each replay runs the next block.  Keeps ``M``
     alive: the graph reads its tensors.  Its temporaries live in the
     graph's own memory pool, the launches' scratch included
     (``kernels/dia.py`` ``dot_scratch``, ``kernels/_rowgroup.py``
-    ``_scratch``)."""
+    ``_scratch``); a scratch among the invariants (``kernels/krylov.py``
+    ``step_scratch``) is one of the static buffers."""
 
     def __init__(self, state: dict, consts: dict, M):
         self.state = {k: v.clone() for k, v in state.items()}
@@ -176,7 +197,8 @@ class _BlockGraph:
                 self.graph, stream=torch.cuda.Stream(self.device)):
             out = _block(cond, body, self.state, self.consts, every)
             for k, v in out.items():
-                self.state[k].copy_(v)
+                if v is not self.state[k]:
+                    self.state[k].copy_(v)
 
     def replay(self) -> None:
         with torch.cuda.device(self.device):
@@ -209,8 +231,9 @@ def _while(cond, body, state: dict, consts: dict, maxiter: int, *, A=None, M=Non
     each committed only where ``cond(state, consts)`` held, and the host
     reads ``cond`` once per block.  ``consts`` holds the loop's tensor
     invariants (thresholds, right-hand sides, a solver's numbers, ``maxiter``
-    as a 0-d int32); ``cond`` and ``body`` read them from there and close
-    over no tensor or number of the solve.  ``on_step(active, new)`` sees
+    as a 0-d int32, and a body's scratch that every step leaves as it found
+    it, such as CG's step kernels' counter); ``cond`` and ``body`` read them
+    from there and close over no tensor or number of the solve.  ``on_step(active, new)`` sees
     every step (for histories).
 
     Where ``_eager_reason`` finds none, the blocks are one CUDA graph kept
@@ -222,8 +245,9 @@ def _while(cond, body, state: dict, consts: dict, maxiter: int, *, A=None, M=Non
 
     While tracing is on (``utils.profiling``), each block's enqueue (or
     replay) is the span ``solver.block`` and the ``solver`` counters take
-    the steps executed, the steps replayed, the captures and, from a
-    state's ``k``, the steps committed."""
+    the steps executed, the steps replayed, the steps of a body that
+    commits itself (``steps_fused``), the captures and, from a state's
+    ``k``, the steps committed."""
     graphs = key = loop = None
     if _eager_reason(A, M, state, consts, on_step, every) is None:
         graphs = A.__dict__.get("_solver_graphs")
@@ -242,6 +266,8 @@ def _while(cond, body, state: dict, consts: dict, maxiter: int, *, A=None, M=Non
             else:
                 loop.replay()
         profiling.count(profiling.SOLVER, "steps_executed", every)
+        if getattr(body, "commits", False):
+            profiling.count(profiling.SOLVER, "steps_fused", every)
         if loop is not None:
             profiling.count(profiling.SOLVER, "steps_replayed", every)
         now = (state, consts) if loop is None else (loop.state, loop.consts)
@@ -279,6 +305,25 @@ def _limit(maxiter, device):
 
 # --- Conjugate Gradient ------------------------------------------------------
 
+def _fused_reason(b, x, r, M, record_history: bool) -> Optional[str]:
+    """Why ``cg`` runs its body of PyTorch ops and selects, or None where it
+    runs the step kernels of ``kernels/krylov.py``, which commit themselves:
+    no preconditioner (z = r), no history, and b, x and r plain tensors (no
+    DTensor) of one dtype the kernels take (f32, f64) on one CUDA card."""
+    if M is not None:
+        return "a preconditioner"
+    if record_history:
+        return "a callback sees every step"
+    vectors = (b, x, r)
+    if any(type(t) is not torch.Tensor for t in vectors):
+        return "a tensor subclass (DTensor)"
+    if any(t.dtype != r.dtype for t in vectors) or r.dtype not in krylov.DTYPES:
+        return "not one dtype of float32 or float64"
+    if r.device.type != "cuda" or any(t.device != r.device for t in vectors):
+        return "not on one CUDA card"
+    return None
+
+
 def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
        maxiter: int = 10_000, M=None, record_history: bool = False):
     """Conjugate Gradient.  Convergence: ‖r‖ < max(tol, rtol·‖b‖).  ``M``:
@@ -293,26 +338,41 @@ def cg(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
 
     x = _x0(b, x0)
     r = b - matvec(x)
-    z = precond(r) if precond is not None else r
-    state = dict(x=x, r=r, p=z, rz=_dot(r, z), rr=_dot(r, r),
-                 k=_int32(0, b.device))
     consts = dict(maxiter=_limit(maxiter, b.device), thresh2=threshold * threshold)
 
     def cond(s, c):
         return (s["k"] < c["maxiter"]) & (s["rr"] >= c["thresh2"])
 
-    def body(s, c):
-        Ap, pAp = matvec_dot(s["p"])
-        # guarded divisions: a breakdown (pAp = 0) stalls instead of
-        # poisoning the state with NaN
-        alpha = torch.where(pAp != 0, s["rz"] / pAp, 0)
-        x = s["x"] + alpha * s["p"]
-        r = s["r"] - alpha * Ap
+    if _fused_reason(b, x, r, M, record_history) is None:
+        # the step kernels update x, r and p in place: x may be the
+        # caller's x0, and p starts as r (z = r, so rr is also r·z)
+        state = dict(x=x.clone(), r=r, p=r.clone(), rr=_dot(r, r), k=_int32(0, b.device))
+        # the kernels' scratch, one pair a solve (a block graph keeps its own)
+        consts["work"], consts["counter"] = krylov.step_scratch(b.device)
+
+        @_commits_itself
+        def body(s, c):
+            Ap, pAp = matvec_dot(s["p"])
+            krylov.cg_step(s["x"], s["r"], s["p"], Ap, pAp, s["rr"], s["k"], c["maxiter"],
+                           c["thresh2"], c["work"], c["counter"])
+            return s
+    else:
         z = precond(r) if precond is not None else r
-        rz = _dot(r, z)
-        beta = torch.where(s["rz"] != 0, rz / s["rz"], 0)
-        return dict(x=x, r=r, p=z + beta * s["p"], rz=rz, rr=_dot(r, r),
-                    k=s["k"] + 1)
+        state = dict(x=x, r=r, p=z, rz=_dot(r, z), rr=_dot(r, r),
+                     k=_int32(0, b.device))
+
+        def body(s, c):
+            Ap, pAp = matvec_dot(s["p"])
+            # guarded divisions: a breakdown (pAp = 0) stalls instead of
+            # poisoning the state with NaN
+            alpha = torch.where(pAp != 0, s["rz"] / pAp, 0)
+            x = s["x"] + alpha * s["p"]
+            r = s["r"] - alpha * Ap
+            z = precond(r) if precond is not None else r
+            rz = _dot(r, z)
+            beta = torch.where(s["rz"] != 0, rz / s["rz"], 0)
+            return dict(x=x, r=r, p=z + beta * s["p"], rz=rz, rr=_dot(r, r),
+                        k=s["k"] + 1)
 
     hist = []
     on_step = None

@@ -31,8 +31,9 @@ public products), ``freeze.auto_format``, ``freeze.plan`` (a launch plan
 built: ``kernels/dia.py`` ``dia_spmv_plan``, ``kernels/_rowgroup.py``
 ``plan_of``) and ``freeze.build`` (a native library loaded, compiled first
 where its build is absent).  Counters: ``solver`` (``steps_executed``,
-``steps_committed``, and of the loops run as CUDA graphs ``steps_replayed``
-and ``graph_captures``) and ``ops.conversions`` (the format conversions the
+``steps_committed``, of the loops run as CUDA graphs ``steps_replayed``
+and ``graph_captures``, and ``steps_fused``, the steps of a body that commits
+itself: CG's step kernels) and ``ops.conversions`` (the format conversions the
 products' dispatch makes at call time, by target format).  The launch
 groups count host enqueues: a launch captured into a CUDA graph counts
 once, at its capture, and a replay adds none.
@@ -213,7 +214,7 @@ def register(name: str, counts: dict) -> dict:
 
 
 SOLVER = register("solver", {"steps_executed": 0, "steps_committed": 0, "steps_replayed": 0,
-                             "graph_captures": 0})
+                             "steps_fused": 0, "graph_captures": 0})
 CONVERSIONS = register("ops.conversions", {})
 
 

@@ -512,7 +512,7 @@ def test_every_compiled_source_lies_in_the_port(monkeypatch):
     monkeypatch.setattr(native, "_lib_error", None)
     assert native.get_lib() is None
     cu = sorted(f[:-3] for f in os.listdir(os.path.join(PORT_DIR, "csrc")) if f.endswith(".cu"))
-    assert cu == ["dia", "route", "spmm", "spmv"]
+    assert cu == ["dia", "krylov", "route", "spmm", "spmv"]
     for name in cu:
         with pytest.raises(OSError, match="recorded"):
             _build.load_cuda(name)

@@ -411,6 +411,8 @@ def card_operator(m, fmt, device):
 CARD_CASES = {
     # solver, the matrix, its format, the preconditioner's maker
     "cg dia 256²": (_cg, lambda: poisson(256), "dia", None),
+    "cg dia 256² f64": (lambda A, b, **kw: _cg(A, b.double(), **{"rtol": 1e-8, **kw}),
+                        lambda: poisson(256).astype(np.float64), "dia", None),
     "pcg jacobi strip": (_cg, lambda: poisson(64), "strip", _jacobi_pre),
     "pcg block jacobi strip": (_cg, lambda: poisson(64), "strip", _block_pre),
     "cg slab_stream": (_cg, lambda: poisson(64), "slab_stream", None),

@@ -20,6 +20,7 @@ import sparsemat_tpu_torch as tsm
 from sparsemat_tpu_torch import solvers
 from sparsemat_tpu_torch.kernels import _rowgroup
 from sparsemat_tpu_torch.kernels import dia as kdia
+from sparsemat_tpu_torch.kernels import krylov
 from sparsemat_tpu_torch.parallel import dist as pdist
 from sparsemat_tpu_torch.utils import profiling
 
@@ -205,7 +206,7 @@ def test_steps_executed_and_committed(solver):
     # on the CPU the loop runs op by op: nothing replayed, nothing captured
     assert rec["counters"]["solver"] == {"steps_executed": every * blocks,
                                          "steps_committed": iters, "steps_replayed": 0,
-                                         "graph_captures": 0}
+                                         "steps_fused": 0, "graph_captures": 0}
 
 
 def test_solver_counts_nothing_with_tracing_off():
@@ -214,7 +215,8 @@ def test_solver_counts_nothing_with_tracing_off():
     rec = profiling.trace_record()
     assert "solver.block" not in rec["spans"]
     assert rec["counters"]["solver"] == {"steps_executed": 0, "steps_committed": 0,
-                                         "steps_replayed": 0, "graph_captures": 0}
+                                         "steps_replayed": 0, "steps_fused": 0,
+                                         "graph_captures": 0}
 
 
 # -- the dispatch ------------------------------------------------------------------------
@@ -299,9 +301,10 @@ def test_plan_self_time_leaves_a_nested_build_out():
 
 def test_the_registry_holds_the_seven_launch_dicts():
     reg = profiling.COUNTERS
-    # three groups: the DIA kernels, every launch over a row-group plan (the
-    # seven formats' products), and the shard products
-    mods = {"kernels.dia": kdia, "kernels.plan": _rowgroup, "parallel.dist": pdist}
+    # four groups: the DIA kernels, every launch over a row-group plan (the
+    # seven formats' products), the shard products and CG's step kernels
+    mods = {"kernels.dia": kdia, "kernels.plan": _rowgroup, "parallel.dist": pdist,
+            "kernels.krylov": krylov}
     for name, mod in mods.items():
         assert reg[name] is mod.LAUNCHES, name
     assert set(reg) == set(mods) | {"solver", "ops.conversions"}
