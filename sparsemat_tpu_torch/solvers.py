@@ -448,7 +448,15 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     residual is known every step, and a converged cycle's remaining steps
     freeze (identity columns) instead of exiting.  ``maxiter`` counts inner
     steps; ``iterations`` counts whole cycles × restart, as the reference
-    does.  One host read per cycle."""
+    does.  One host read per cycle.
+
+    While tracing is on (``utils.profiling``), each cycle's enqueue is the
+    span ``solver.block`` (its host read of the residual left out) and the
+    ``solver`` counters take ``restart`` steps executed and one cycle a
+    cycle, and, from the cycle's active-step count read with its residual,
+    the steps committed and ``arnoldi_rows``, the basis rows that the
+    committed steps' Gram–Schmidt projects against (j + 1 at step j), with
+    ``arnoldi_bytes``, those rows' bytes."""
     b = _check_operands(A, b)
     matvec = _as_matvec(A)
     precond = _precond(M) or (lambda v: v)
@@ -457,6 +465,7 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     threshold = _threshold(b, tol, rtol)
     n_cycles = max(-(-int(maxiter) // m), 1)
     steps_idx = torch.arange(m + 1, device=dev)
+    solve_dt = torch.promote_types(dt, torch.float32)
 
     def cycle(x):
         r = b - matvec(x)
@@ -471,8 +480,11 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         active = beta >= threshold
         steps = _int32(0, dev)
         for j in range(m):
-            w = matvec(precond(V[j]))
-            # modified Gram-Schmidt against the basis (rows > j are zero)
+            # a bf16 or f16 product accumulates into f32: back to the basis's
+            # dtype (for f32 and f64 a no-op)
+            w = matvec(precond(V[j])).to(dt)
+            # classical Gram-Schmidt: w projected against every basis row at
+            # once (rows past j are zero, and h is masked past j)
             h = torch.where(steps_idx <= j, V @ w, 0)
             w = w - V.T @ h
             h_next = torch.sqrt(_dot(w, w))
@@ -506,18 +518,36 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         # g past the active steps is masked: the first frozen slot carries
         # the final residual, which must not leak into the correction
         g_solve = torch.where(steps_idx[:m] < steps, g[:m], 0)
-        y = torch.linalg.solve_triangular(H[:m, :m], g_solve[:, None], upper=True)[:, 0]
+        # the triangular solve has no half-precision kernel: bf16 and f16
+        # solve it in f32 (for f32 and f64 the casts are no-ops)
+        y = torch.linalg.solve_triangular(H[:m, :m].to(solve_dt), g_solve[:, None].to(solve_dt),
+                                          upper=True)[:, 0].to(dt)
         x = x + precond(V[:m].T @ y)
         r2 = b - matvec(x)
-        return x, torch.sqrt(_dot(r2, r2))
+        return x, torch.sqrt(_dot(r2, r2)), steps
 
     x = _x0(b, x0)
     r0 = b - matvec(x)
     res = torch.sqrt(_dot(r0, r0))
-    k = 0
-    while k < n_cycles * m and not bool(res < threshold):
-        x, res = cycle(x)
+    k, steps = 0, None
+    while True:
+        if steps is not None and profiling.on():
+            # while tracing, the cycle's active steps ride on its residual's
+            # host read (off, the loop reads the residual alone)
+            done, n_active = torch.stack([(res < threshold).to(torch.int32), steps]).tolist()
+            rows = n_active * (n_active + 1) // 2
+            profiling.count(profiling.SOLVER, "steps_committed", n_active)
+            profiling.count(profiling.SOLVER, "arnoldi_rows", rows)
+            profiling.count(profiling.SOLVER, "arnoldi_bytes", rows * b.shape[0] * b.element_size())
+            if done or k >= n_cycles * m:
+                break
+        elif k >= n_cycles * m or bool(res < threshold):
+            break
+        with profiling.span("solver.block"):
+            x, res, steps = cycle(x)
         k += m
+        profiling.count(profiling.SOLVER, "steps_executed", m)
+        profiling.count(profiling.SOLVER, "cycles")
     return x, SolveInfo(iterations=_int32(k, dev), residual_norm=res,
                         converged=res < threshold)
 

@@ -26,14 +26,17 @@ counts below, which ``count`` adds to only while tracing is on.
 both.  ``trace_to`` exports a profiler's Chrome trace.
 
 Spans: ``solver.block`` (one block of ``solvers._while``'s steps, or its
-graph's replay, the host read of the condition left out), ``ops.spmv`` and ``ops.spmm`` (the
+graph's replay, or one cycle of ``solvers.gmres``, the host read of the
+condition left out), ``ops.spmv`` and ``ops.spmm`` (the
 public products), ``freeze.auto_format``, ``freeze.plan`` (a launch plan
 built: ``kernels/dia.py`` ``dia_spmv_plan``, ``kernels/_rowgroup.py``
 ``plan_of``) and ``freeze.build`` (a native library loaded, compiled first
 where its build is absent).  Counters: ``solver`` (``steps_executed``,
 ``steps_committed``, of the loops run as CUDA graphs ``steps_replayed``
-and ``graph_captures``, and ``steps_fused``, the steps of a body that commits
-itself: CG's step kernels) and ``ops.conversions`` (the format conversions the
+and ``graph_captures``, ``steps_fused``, the steps of a body that commits
+itself: CG's step kernels, and of GMRES ``cycles``, ``arnoldi_rows``, the
+basis rows its committed steps project against, and ``arnoldi_bytes``, their
+bytes) and ``ops.conversions`` (the format conversions the
 products' dispatch makes at call time, by target format).  The launch
 groups count host enqueues: a launch captured into a CUDA graph counts
 once, at its capture, and a replay adds none.
@@ -214,7 +217,8 @@ def register(name: str, counts: dict) -> dict:
 
 
 SOLVER = register("solver", {"steps_executed": 0, "steps_committed": 0, "steps_replayed": 0,
-                             "steps_fused": 0, "graph_captures": 0})
+                             "steps_fused": 0, "graph_captures": 0, "cycles": 0,
+                             "arnoldi_rows": 0, "arnoldi_bytes": 0})
 CONVERSIONS = register("ops.conversions", {})
 
 

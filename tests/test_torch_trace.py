@@ -206,7 +206,8 @@ def test_steps_executed_and_committed(solver):
     # on the CPU the loop runs op by op: nothing replayed, nothing captured
     assert rec["counters"]["solver"] == {"steps_executed": every * blocks,
                                          "steps_committed": iters, "steps_replayed": 0,
-                                         "steps_fused": 0, "graph_captures": 0}
+                                         "steps_fused": 0, "graph_captures": 0, "cycles": 0,
+                                         "arnoldi_rows": 0, "arnoldi_bytes": 0}
 
 
 def test_solver_counts_nothing_with_tracing_off():
@@ -216,7 +217,8 @@ def test_solver_counts_nothing_with_tracing_off():
     assert "solver.block" not in rec["spans"]
     assert rec["counters"]["solver"] == {"steps_executed": 0, "steps_committed": 0,
                                          "steps_replayed": 0, "steps_fused": 0,
-                                         "graph_captures": 0}
+                                         "graph_captures": 0, "cycles": 0, "arnoldi_rows": 0,
+                                         "arnoldi_bytes": 0}
 
 
 # -- the dispatch ------------------------------------------------------------------------
