@@ -147,7 +147,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 reloaded to the card; the bsr_spmm, slab_spmv and slab_spmm
                 launch counters must be > 0; BSR spmm, SlabPack spmv and
                 spmm rerun bitwise, and SlabPack and SlabELL spmv are
-                bitwise equal
+                bitwise equal; the StripELL's SpMM at m = 1, 8, 32, 128
+                (sub-warps of 1, 2, 8 lanes a group, then whole warps):
+                kernel and device ms against portbench's roofline bound,
+                the plan's walk and torch.sparse.mm, every launch counted
+                under its lane width
  20 times       each kernel of the path against its plain version (CUDA
                 events per call, dispatch included) and its device time
                 (profiler): the SpMM of the BSR, SlabPack and SlabELL
@@ -281,6 +285,7 @@ import contextlib
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -1696,6 +1701,44 @@ def spmv_need(plan, csr):
     return (of_plan, "plan") if of_plan < of_csr else (of_csr, "CSR")
 
 
+def narrow_spmm_times(csr, B, nnz, widths=(1, 8, 32, 128)):
+    """The row-group SpMM over the FEM operator's StripELL plan at each
+    width (f32): kernel ms a call (CUDA events, in turns with the plan's
+    walk, its plain version), device ms (profiler), the bound of
+    ``portbench/roofline.py`` (values, B and Y once; ``product_bound_s``)
+    and ``torch.sparse.mm`` on the CSR; checks that every launch counted
+    under its ``spmm_lanes`` width.  Returns one line per width."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench"))
+    import roofline
+
+    st = csr.to_strip()
+    plan = krg.plan_of(st)
+    A_lib = torch_csr(csr)
+    n_rows, n_cols = csr.shape
+    lines = []
+    for m_w in widths:
+        B_w = B[:, :m_w].contiguous()
+        lanes = str(krg.spmm_lanes(m_w, B_w.element_size()))
+        compare(None, tsm.spmm(st, B_w), krg.walk(plan, B_w), 1e-5,
+                f"fem strip spmm m={m_w} vs its plan's walk")
+        before, calls = dict(krg.LANE_LAUNCHES), krg.LAUNCHES["strip_spmm"]
+        k_ms, p_ms, k_runs, _ = paired_ms(lambda: tsm.spmm(st, B_w), lambda: krg.walk(plan, B_w),
+                                          20, 2)
+        d_ms = device_us(lambda: tsm.spmm(st, B_w), 20, "rowgroup_spmm_kernel",
+                         lambda: krg.LAUNCHES["strip_spmm"]) / 1e3
+        rose = {k: krg.LANE_LAUNCHES[k] - before[k] for k in before}
+        made = krg.LAUNCHES["strip_spmm"] - calls
+        check(made > 0 and rose == dict.fromkeys(rose, 0) | {lanes: made},
+              f"fem strip spmm m={m_w}: launches by lane width {rose}, {made} launches, "
+              f"all at {lanes} expected")
+        bound_s, by = roofline.product_bound_s(nnz, n_rows, n_cols, m_w)
+        lib_ms = library_ms(lambda: torch.sparse.mm(A_lib, B_w), 20)
+        lines.append(f"m={m_w} ({lanes} lanes a group) kernel {k_ms:.4f} runs {k_runs}, device "
+                     f"{d_ms:.4f} ({100 * bound_s * 1e3 / d_ms:.1f}% of the {bound_s * 1e3:.4f} "
+                     f"ms {by} bound), plain {p_ms:.4f}, torch.sparse.mm {lib_ms:.4f}")
+    return lines
+
+
 def spmm_phases(dev, g, times, launches):
     """Phases 17–20: the BSR and slab kernels against their plain versions,
     and the FEM SpMM path at full size.  Adds the three kernels' times and
@@ -1876,6 +1919,8 @@ def spmm_phases(dev, g, times, launches):
         + f"{({k: launches[k] for k in ('bsr_spmm', 'slab_spmv', 'slab_spmm')})}")
     for label, plan in plans.items():
         say("19 fem spmm", plan_line(label, plan, host[f"{label} plan"]))
+    say("19 fem spmm", "StripELL spmm by width, ms per call: "
+        + "; ".join(narrow_spmm_times(csr, B, nnz)))
 
     # 20 -----------------------------------------------------------------------
     del Y_stream, Y_sl

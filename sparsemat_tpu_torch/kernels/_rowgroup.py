@@ -26,6 +26,10 @@ The SpMV splits the plan's union columns over sub-warps of L lanes
 (``SpmvSplit``, built once per plan): L from the mean union columns per
 group, and a group longer than a segment (2·UNROLL·L union columns) cut
 into segments whose partial sums the last one to finish adds in order.
+The SpMM gives each row group a warp per column tile of B (128 f32 or 64
+f64 columns), or, where B is narrower than a tile, a sub-warp of
+``spmm_lanes`` lanes, so a warp walks 32 / L groups at once
+(``LANE_LAUNCHES`` counts launches by that width).
 
 A RouteStream's plan is built at G = 1, where it is the matrix's CSR
 (``grp_ptr`` the row pointers, ``cols`` and ``vals`` the entries in row
@@ -61,6 +65,13 @@ LAUNCHES = profiling.register("kernels.plan", {
     "slab_spmm": 0, "slab_stream_spmv": 0, "slab_stream_spmm": 0, "route_spmv": 0,
     "route_spmm": 0, "bsr_spmm": 0})
 
+#: the SpMM's lanes a row group: a sub-warp below a full column tile, a
+#: whole warp (32) at and past one
+SPMM_LANES = (1, 2, 4, 8, 16, 32)
+#: SpMM launches by the lanes each row group took (``spmm_lanes``); the
+#: plain versions do not count
+LANE_LAUNCHES = profiling.register("kernels.spmm_lanes", {str(L): 0 for L in SPMM_LANES})
+
 #: the largest row group (the kernels' mask is 8 bits)
 MAX_GROUP = 8
 #: bytes of B a warp gathers per union column at a full column tile
@@ -83,8 +94,19 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LANE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def spmm_lanes(m: int, itemsize: int) -> int:
+    """Lanes of one row group in the row-group SpMM of B with ``m`` columns
+    of ``itemsize`` bytes: the fewest of ``SPMM_LANES`` whose 16-byte
+    slices, 16 // itemsize columns a lane, cover m, and 32 (a warp a group,
+    walking column tiles) past one tile.  The 16-byte and the scalar path
+    take the same count."""
+    width = 16 // itemsize
+    return next(L for L in SPMM_LANES if L * width >= m or L == SPMM_LANES[-1])
 
 
 def _bind(name: str, fn_prefix: str, argtypes) -> ctypes.CDLL:
@@ -106,7 +128,7 @@ def _bind(name: str, fn_prefix: str, argtypes) -> ctypes.CDLL:
 def _kernels() -> ctypes.CDLL:
     """The built and bound ``csrc/spmm.cu`` library."""
     return _bind("spmm", "smt_rowgroup_spmm",
-                 [_VP, _VP, _VP, _VP, _I64, _I64, _I32, _I64, _I64, _VP, _VP, _I32, _VP])
+                 [_VP, _VP, _VP, _VP, _I64, _I64, _I32, _I64, _I64, _VP, _VP, _I32, _I32, _VP])
 
 
 def _spmv_kernels() -> ctypes.CDLL:
@@ -502,8 +524,9 @@ def spmv_walk(plan: Plan, x: torch.Tensor, split: SpmvSplit | None = None) -> to
 
 def launch(plan: Plan, B: torch.Tensor, launches: dict, name: str) -> torch.Tensor:
     """Y = A @ B through ``rowgroup_spmm_kernel``, one launch (counted in
-    ``launches[name]``); B (n_cols, m) on the plan's CUDA device.  bf16/f16
-    values and B are computed in f32."""
+    ``launches[name]``, and in ``LANE_LAUNCHES`` by its ``spmm_lanes``); B
+    (n_cols, m) on the plan's CUDA device.  bf16/f16 values and B are
+    computed in f32."""
     n_rows, _ = plan.shape
     m = B.shape[1]
     adt = accum_dtype(torch.promote_types(plan.vals.dtype, B.dtype))
@@ -514,15 +537,18 @@ def launch(plan: Plan, B: torch.Tensor, launches: dict, name: str) -> torch.Tens
         return Y
     vec = int(m % (16 // adt.itemsize) == 0 and Bc.data_ptr() % 16 == 0
               and Y.data_ptr() % 16 == 0)
+    lanes = spmm_lanes(m, adt.itemsize)
     lib = _kernels()
     with torch.cuda.device(B.device):
         rc = getattr(lib, f"smt_rowgroup_spmm_{_SUFFIX[adt]}")(
             plan.grp_ptr.data_ptr(), plan.cols.data_ptr(), plan.mask.data_ptr(),
             vals.data_ptr(), plan.n_union, plan.n_groups, plan.group, n_rows, m,
-            Bc.data_ptr(), Y.data_ptr(), vec, torch.cuda.current_stream(B.device).cuda_stream)
+            Bc.data_ptr(), Y.data_ptr(), vec, lanes,
+            torch.cuda.current_stream(B.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} ({lib.smt_spmm_error_string(rc).decode()})")
     launches[name] += 1
+    LANE_LAUNCHES[str(lanes)] += 1
     return Y
 
 

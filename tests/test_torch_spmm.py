@@ -538,3 +538,118 @@ def test_cuda_spmm_of_the_plan_formats_launches_the_rowgroup_kernel(cuda, fmt, n
         assert rg.LAUNCHES[launch] == 6
     finally:
         profiling.reset_trace()
+
+
+# -- the row-group SpMM below a full column tile: sub-warps of spmm_lanes lanes ------------
+
+#: widths of B on both sides of each sub-warp width's limit, and a full f32 tile
+NARROW_M = (1, 2, 3, 4, 5, 8, 16, 17, 32, 33, 64, 65, 128)
+
+
+def kernel_columns(m_rhs, width, lanes, vec):
+    """The columns of B the SpMM kernel's lane slots write at ``lanes``
+    lanes a row group and ``width`` columns a lane, in column tiles of
+    lanes·width: a lane's 16-byte slice at lane·width (written whole where
+    it starts inside m), or its columns lane + lanes·w (each masked)."""
+    tile = lanes * width
+    out = []
+    for j0 in range(0, m_rhs, tile):
+        for s in range(lanes):
+            if vec:
+                if j0 + s * width < m_rhs:
+                    out += [j0 + s * width + w for w in range(width)]
+            else:
+                out += [c for c in (j0 + s + lanes * w for w in range(width)) if c < m_rhs]
+    return out
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["16-byte", "scalar"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("m_rhs", NARROW_M)
+def test_spmm_lanes_are_the_fewest_that_cover_each_column_once(m_rhs, dt, vec):
+    """The lane rule: the fewest lanes a row group (a power of two) whose
+    16-byte slices cover m, a whole warp past 16 of them; one column tile
+    below a warp.  Either path then writes each column of Y once, the
+    16-byte one exactly where m is a multiple of its width (elsewhere the
+    launch takes the scalar one)."""
+    itemsize = torch.empty(0, dtype=dt).element_size()
+    width = 16 // itemsize
+    lanes = rg.spmm_lanes(m_rhs, itemsize)
+    assert lanes in rg.SPMM_LANES and lanes & (lanes - 1) == 0
+    assert (lanes == 32) == (m_rhs > 16 * width)
+    if lanes < 32:
+        assert lanes * width >= m_rhs and (lanes == 1 or lanes // 2 * width < m_rhs)
+    cols = kernel_columns(m_rhs, width, lanes, vec)
+    if vec and m_rhs % width:
+        assert max(cols) >= m_rhs                # a slice runs past m: not this path
+    else:
+        assert sorted(cols) == list(range(m_rhs))
+
+
+@pytest.mark.parametrize("fmt", list(PLAN_FORMATS))
+def test_cpu_spmm_counts_no_lane_width(fmt):
+    """The plain versions launch nothing, so ``kernels.spmm_lanes`` stays at
+    zero whatever the width."""
+    m = fem()
+    mat = PLAN_FORMATS[fmt][0](tsm.CSR.from_scipy(m))
+    rg.reset_launches()
+    for m_rhs in (1, 8, 64, 128):
+        B = torch.from_numpy(np.random.default_rng(m_rhs).standard_normal((m.shape[1], m_rhs))
+                             .astype(np.float32))
+        assert rel_err(tsm.spmm(mat, B), m.astype(np.float64) @ B.double().numpy()) < 1e-5
+    assert set(rg.LANE_LAUNCHES) == {str(L) for L in rg.SPMM_LANES}
+    assert not any(rg.LANE_LAUNCHES.values())
+    assert profiling.COUNTERS["kernels.spmm_lanes"] is rg.LANE_LAUNCHES
+
+
+def power_law():
+    """The circuit surrogate at a small size: Zipf row lengths to a few
+    dozen beside rows of one or two, columns scattered."""
+    return matgen.circuit_scatter(n=3000, seed=1)
+
+
+#: every planned format's freeze of a CSR
+NARROW_FORMATS = {"bsr": lambda c: tsm.BSR.from_csr(c), "slab": lambda c: c.to_slab(),
+                  "slab_pack": lambda c: c.to_slab_pack(),
+                  **{k: f for k, (f, _) in PLAN_FORMATS.items()}}
+NARROW_MATRICES = {**PLAN_MATRICES, "power_law": power_law}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(NARROW_MATRICES))
+@pytest.mark.parametrize("fmt", list(NARROW_FORMATS))
+def test_cuda_narrow_spmm_is_the_full_tile_product_bitwise(cuda, fmt, name, dt):
+    """At every width of ``NARROW_M``, on the 16-byte path (B fresh) and on
+    the scalar one (B a view one element into its storage, 4 bytes in f32,
+    so 16-byte loads are off; or m not a multiple of the lane's width): Y
+    is bitwise the same columns of the product with a 128-wide B (those
+    columns, then seeded padding), which takes whole warps; within the
+    tolerance of scipy's f64 product; and bitwise equal on a rerun.  Each
+    launch counts under its ``spmm_lanes``."""
+    m = NARROW_MATRICES[name]()
+    np_dt = np.float32 if dt == torch.float32 else np.float64
+    mat = NARROW_FORMATS[fmt](tsm.CSR.from_scipy(m.astype(np_dt), device=cuda))
+    n_cols = m.shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    wide = torch.randn(n_cols, 128, dtype=dt, device=cuda, generator=gen)
+    want = m.astype(np.float64) @ wide.double().cpu().numpy()
+    for m_rhs in NARROW_M:
+        lanes = str(rg.spmm_lanes(m_rhs, wide.element_size()))
+        for offset in (0, 1):
+            B = torch.empty(n_cols * m_rhs + offset, dtype=dt, device=cuda)[offset:]
+            B = B.view(n_cols, m_rhs)
+            B.copy_(wide[:, :m_rhs])
+            padded = torch.cat([B, torch.randn(n_cols, 128 - m_rhs, dtype=dt, device=cuda,
+                                               generator=gen)], 1)
+            Y_wide = tsm.spmm(mat, padded)
+            rg.reset_launches()
+            Y = tsm.spmm(mat, B)
+            again = tsm.spmm(mat, B)
+            torch.cuda.synchronize()
+            what = f"m={m_rhs} offset={offset}"
+            assert Y.dtype == dt and Y.shape == (m.shape[0], m_rhs), what
+            assert torch.equal(Y, Y_wide[:, :m_rhs]), what
+            assert torch.equal(again, Y), what
+            assert rel_err(Y.cpu(), want[:, :m_rhs]) < TOL[np_dt], what
+            assert rg.LANE_LAUNCHES == dict.fromkeys(rg.LANE_LAUNCHES, 0) | {lanes: 2}, what

@@ -2,8 +2,9 @@
 is off, host ranges named ``sparsemat.*`` under ``torch.profiler``, a table
 of counts and self times that adds up, the ``tracing()`` switch, the
 solver loop's step counters, the dispatch's conversion counter, the set-up
-spans of a freeze, and the one registry of counters that holds the three
-launch groups (``kernels.dia``, ``kernels.plan``, ``parallel.dist``)."""
+spans of a freeze, and the one registry of counters that holds the
+launch groups (``kernels.dia``, ``kernels.plan``, ``kernels.spmm_lanes``,
+``parallel.dist``)."""
 
 import contextlib
 import itertools
@@ -303,13 +304,15 @@ def test_plan_self_time_leaves_a_nested_build_out():
 
 def test_the_registry_holds_the_seven_launch_dicts():
     reg = profiling.COUNTERS
-    # four groups: the DIA kernels, every launch over a row-group plan (the
-    # seven formats' products), the shard products and CG's step kernels
+    # five groups: the DIA kernels, every launch over a row-group plan (the
+    # seven formats' products), the row-group SpMM's launches by lane width,
+    # the shard products and CG's step kernels
     mods = {"kernels.dia": kdia, "kernels.plan": _rowgroup, "parallel.dist": pdist,
             "kernels.krylov": krylov}
     for name, mod in mods.items():
         assert reg[name] is mod.LAUNCHES, name
-    assert set(reg) == set(mods) | {"solver", "ops.conversions"}
+    assert reg["kernels.spmm_lanes"] is _rowgroup.LANE_LAUNCHES
+    assert set(reg) == set(mods) | {"kernels.spmm_lanes", "solver", "ops.conversions"}
 
 
 def test_launch_counts_keep_their_behaviour():
